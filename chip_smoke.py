@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main mapping path once on one CUDA card.
+"""Drive the PyTorch port's mapping paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,18 +9,32 @@ Phases (each raises on failure; the script then exits non-zero):
 2. the native host library: probed in a subprocess, rebuilt once with
    ``make -C native -B`` if the probe fails (the committed library may
    have been built for another CPU);
-3. both CUDA kernels built from ``rawalign_tpu_torch/csrc``;
-4. the hybrid mapping path on a 5 Mb synthetic genome (about 8.4 M index
-   keys), 256 reads, the ``sensitive`` preset plus DTW chain evaluation:
-   a warm pass (whose first DTW round is kept), then each kernel checked
-   bit for bit against its plain PyTorch version on the card at the
-   shapes of that path — the sketch scan at B=32, NE=2048, e=6, the
-   banded DTW on the kept round's tiles and on a synthetic tile mix up
-   to 2048 — and timed beside it; then the launch counters are zeroed
-   and a timed pass maps every read again. The script fails if either
-   kernel was not launched in that pass or no DTW tile ran on the card,
-   and unless the first 16 reads' PAF lines equal the golden engine's
-   byte for byte (mt:f stripped).
+3. all four CUDA kernels built from ``rawalign_tpu_torch/csrc``, one
+   nvcc process per source, all started together;
+4. the hybrid path (host events, device sketch and lookup, native chain
+   DP and round tail, device DTW) on a 5 Mb synthetic genome (about
+   8.4 M index keys), 256 reads, the ``sensitive`` preset plus DTW chain
+   evaluation: a warm pass (whose first DTW round is kept), then the
+   sketch and DTW kernels checked bit for bit against their plain
+   PyTorch versions on the card at the shapes of that path — the sketch
+   scan at B=32, NE=2048, e=6, the banded DTW on the kept round's tiles
+   and on a synthetic tile mix up to 2048 — and timed beside them; then
+   the launch counters are zeroed and a timed pass maps every read
+   again. It fails if either kernel was not launched in that pass or no
+   DTW tile ran on the card, and unless the first 16 reads' PAF lines
+   equal the golden engine's byte for byte (mt:f stripped);
+5. the all-device path (``stage1_impl="device", chain_impl="device"``:
+   device events, sketch and lookup, host expansion, device chain DP,
+   Python round tail, device DTW) on the same reads: a warm pass (whose
+   first chain round is kept), then the event kernel checked on the
+   first chunk of 32 reads (B=32, L=4000) against its plain version on
+   the card and the native detector, the chain kernel on the kept round
+   against its plain version and ``native.chain_dp``, and on a synthetic
+   round of 16384 anchors (W=64) against ``native.chain_dp``; then the
+   counters are zeroed and a timed pass maps every read. It fails unless
+   all four kernels launched in that pass and its 256 PAF lines equal
+   the hybrid pass's byte for byte (mt:f stripped), the first 16 also
+   the golden engine's.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. It never imports JAX.
@@ -96,11 +110,12 @@ def native_library() -> None:
 def build_kernels() -> None:
     from rawalign_tpu_torch.kernels import build
 
+    t0 = time.perf_counter()
+    build.build_all()
+    log(f"[build] {len(build.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
     for name in build.KERNELS:
-        t0 = time.perf_counter()
         build.load(name)
-        log(f"[build] {name}: {time.perf_counter() - t0:.2f} s "
-            f"(nvcc {build.build_seconds[name]:.2f} s)")
+        log(f"[build] {name}: nvcc {build.build_seconds[name]:.2f} s")
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
@@ -108,13 +123,15 @@ def build_kernels() -> None:
 
 def cuda_ms(fn, reps: int) -> tuple[float, object]:
     """Median milliseconds of ``fn()`` over ``reps`` runs after one warm
-    run, each run bracketed by torch.cuda.synchronize()."""
+    run, each run bracketed by torch.cuda.synchronize(); with ``reps``
+    0, the one run is timed (for plain versions that take seconds)."""
     import torch
 
-    out = fn()
-    torch.cuda.synchronize()
+    if reps:
+        fn()
+        torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(max(reps, 1)):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -248,32 +265,183 @@ def check_dtw(engine, captured, device, reps: int = 10) -> dict:
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(err, syn[2]))
 
 
+def _same(a, b) -> bool:
+    """Equal element for element, NaN matching NaN (a chunk whose z-norm
+    divides by a zero deviation gives NaN in every implementation)."""
+    return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def check_events(ds, mo, device, reps: int = 20) -> dict:
+    """Kernel against the plain detector (on the card) and the native
+    detector on the first chunk of 32 reads."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu import native
+    from rawalign_tpu_torch.signal import events, events_cuda
+
+    B, L, ne = 32, mo.chunk_size, mo.max_events_per_chunk
+    sig = np.zeros((B, L), np.float32)
+    lens = np.zeros(B, np.int32)
+    for i, r in enumerate(ds.reads[:B]):
+        part = r.signal[:L]
+        sig[i, : part.size] = part
+        lens[i] = part.size
+    sig_d = torch.from_numpy(sig).to(device)
+    lens_d = torch.from_numpy(lens).to(device)
+    kw = dict(w1=mo.window_length1, w2=mo.window_length2,
+              threshold1=mo.threshold1, threshold2=mo.threshold2,
+              peak_height=mo.peak_height, max_events=ne)
+    ms, got = cuda_ms(lambda: events_cuda.detect_events(sig_d, lens_d, **kw), reps)
+    plain_ms, want = cuda_ms(
+        lambda: events.detect_events_plain(sig_d, lens_d, **kw), 0)
+    if not (torch.equal(got.n_events, want.n_events)
+            and torch.equal(got.n_dropped, want.n_dropped)
+            and _same(got.values, want.values)):
+        raise RuntimeError("event kernel disagrees with the plain detector")
+    values = got.values.cpu().numpy()
+    for i in range(B):
+        ev = native.detect_events(sig[i, : lens[i]], **{
+            k: v for k, v in kw.items() if k != "max_events"})
+        n = int(got.n_events[i])
+        if n != min(ev.size, ne) or not np.array_equal(values[i, :n], ev[:ne]):
+            raise RuntimeError(f"event kernel disagrees with native.detect_events "
+                               f"on read {i}")
+    diff = (got.values - want.values).abs()
+    err = float(torch.where(diff.isnan(), 0.0, diff).max())
+    log(f"[events] B={B} L={L}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bit-identical to plain and native ({int(got.n_events.sum())} events)")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+
+
+def _chain_vs(packed, a, device, window, kw, reps, plain: bool):
+    """Chain kernel on one packed round (B, 3a+1): timed, held to
+    native.chain_dp and, if ``plain``, to the plain version on the card."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu import native
+    from rawalign_tpu_torch.map import chain, chain_cuda
+
+    seg, tgt, qry = (np.ascontiguousarray(packed[:, k * a : (k + 1) * a])
+                     for k in range(3))
+    n = np.ascontiguousarray(packed[:, 3 * a])
+    d = [torch.from_numpy(x).to(device) for x in (seg, tgt, qry, n)]
+    ms, got = cuda_ms(lambda: chain_cuda.chain_dp(*d, window=window, **kw), reps)
+    plain_ms, err = None, 0.0
+    if plain:
+        plain_ms, want = cuda_ms(
+            lambda: chain.chain_dp_plain(*d, window=window, **kw), 0)
+        if not (torch.equal(got.scores, want.scores)
+                and torch.equal(got.preds, want.preds)):
+            raise RuntimeError("chain kernel disagrees with the plain version")
+        err = float((got.scores - want.scores).abs().max())
+    ns, npred = native.chain_dp(seg, tgt, qry, n, window=window, **kw)
+    if not (np.array_equal(got.scores.cpu().numpy(), ns)
+            and np.array_equal(got.preds.cpu().numpy(), npred)):
+        raise RuntimeError("chain kernel disagrees with native.chain_dp")
+    return ms, plain_ms, err, int(n.max())
+
+
+def check_chain(engine, captured, device, reps: int = 10) -> dict:
+    import numpy as np
+
+    opt = engine.opt
+    kw = dict(e=engine.index.opt.e, max_gap=opt.max_gap_length,
+              max_target_gap=opt.max_target_gap_length,
+              max_skips=opt.max_num_skips)
+    W = engine.chain_window
+    packed, a = captured
+    ms, plain_ms, err, nmax = _chain_vs(packed, a, device, W, kw, reps, True)
+    log(f"[chain] captured round: B={packed.shape[0]} A={a} (max {nmax} "
+        f"anchors) W={W}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
+        f"bit-identical to plain and native")
+    # a wide synthetic round: sorted rows with co-linear runs
+    rng = np.random.default_rng(2)
+    B, A = 32, 16384
+    wide = np.zeros((B, 3 * A + 1), np.int32)
+    for b in range(B):
+        s = np.sort(rng.integers(0, 8, A))
+        t = rng.integers(0, 5_000_000, A)
+        q = rng.integers(0, 20_000, A)
+        for k in rng.integers(0, A - 100, 64):
+            run = np.arange(100)
+            s[k : k + 100] = s[k]
+            t[k : k + 100] = t[k] + run * 10
+            q[k : k + 100] = q[k] + run * 9
+        o = np.lexsort((q, t, s))
+        wide[b, :A], wide[b, A : 2 * A], wide[b, 2 * A : 3 * A] = s[o], t[o], q[o]
+        wide[b, 3 * A] = A
+    wms, _, _, _ = _chain_vs(wide, A, device, 64, kw, 3, False)
+    log(f"[chain] synthetic round: B={B} A={A} W=64: kernel {wms:.4f} ms, "
+        f"bit-identical to native")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, wide_ms=wms)
+
+
 def strip_time(line: str) -> str:
     return re.sub(r"mt:f:[0-9.]+", "mt:f:X", line)
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     name, smi = card()
     native_library()
     build_kernels()
     import torch
 
-    run(torch.device("cuda", 0), name, smi)
+    run(torch.device("cuda", 0), name, smi, t_start)
     return 0
 
 
-def run(device, name: str, smi: str) -> None:
+def timed_pass(engine, reads, counters, label: str, smi: str):
+    """Map every read once with the launch counters zeroed just before;
+    returns (results, launches read just after)."""
+    import torch
+
+    for k in engine.counters:
+        engine.counters[k] = 0
+    for k in engine.phase_times:
+        engine.phase_times[k] = 0
+    for mod in counters.values():
+        mod.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = list(engine.map_reads(reads))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: mod.launches for k, mod in counters.items()}
+    c = engine.counters
+    log(f"[{label}] timed pass: {len(results)} reads in {dt:.3f} s = "
+        f"{len(results) / dt:.2f} reads/s on {smi}")
+    log(f"[{label}] phase seconds: " + json.dumps(
+        {k: round(v, 4) for k, v in engine.phase_times.items()}))
+    log(f"[{label}] launches {launches}; dtw_tiles_device {c['dtw_tiles_device']}, "
+        f"dtw_tiles_host_large {c['dtw_tiles_host_large']}, dtw_cells "
+        f"{c['dtw_cells']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    if len(results) != len(reads):
+        raise RuntimeError(f"{len(results)} results for {len(reads)} reads")
+    if min(launches.values()) == 0 or c["dtw_tiles_device"] == 0:
+        raise RuntimeError(f"the {label} pass did not launch every kernel of "
+                           f"its path: {launches}")
+    return results, launches
+
+
+def run(device, name: str, smi: str, t_start: float) -> None:
     """Phases 4 and 5 on ``device``; prints the two result lines."""
     import torch
 
     from rawalign_tpu.golden import engine as gengine
     from rawalign_tpu.io import paf
-    from rawalign_tpu_torch.map import dtw_cuda
+    from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
     from rawalign_tpu_torch.map.engine import MappingEngine
     from rawalign_tpu_torch.seeds import sketch_cuda
+    from rawalign_tpu_torch.signal import events_cuda
 
     ds, idx, io, mo = dataset()
     reads = [(r.name, r.signal) for r in ds.reads]
+
+    # ---- phase 4: the hybrid path
     engine = MappingEngine(idx, mo, device=device, batch_size=32,
                            pipeline_depth=8)
     captured = []
@@ -288,40 +456,17 @@ def run(device, name: str, smi: str) -> None:
     t0 = time.perf_counter()
     list(engine.map_reads(reads))
     torch.cuda.synchronize()
-    log(f"[map] warm pass {time.perf_counter() - t0:.2f} s")
+    log(f"[hybrid] warm pass {time.perf_counter() - t0:.2f} s")
     del engine._dtw_submit
     if not captured:
         raise RuntimeError("the warm pass ran no DTW round")
 
     rec_sketch = check_sketch(ds, mo, io, device)
     rec_dtw = check_dtw(engine, captured[0], device)
-
-    # the main path, counted
-    for k in engine.counters:
-        engine.counters[k] = 0
-    for k in engine.phase_times:
-        engine.phase_times[k] = 0
-    torch.cuda.reset_peak_memory_stats()
-    sketch_cuda.launches = 0
-    dtw_cuda.launches = 0
-    t0 = time.perf_counter()
-    results = list(engine.map_reads(reads))
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"sketch_scan": sketch_cuda.launches,
-                "dtw_banded": dtw_cuda.launches}
+    results, _ = timed_pass(
+        engine, reads, {"sketch_scan": sketch_cuda, "dtw_banded": dtw_cuda},
+        "hybrid", smi)
     engine.close()
-    c = engine.counters
-    log(f"[map] timed pass: {len(results)} reads in {dt:.3f} s = "
-        f"{len(results) / dt:.2f} reads/s on {smi}")
-    log("[map] phase seconds: " + json.dumps(
-        {k: round(v, 4) for k, v in engine.phase_times.items()}))
-    log(f"[map] launches {launches}; dtw_tiles_device {c['dtw_tiles_device']}, "
-        f"dtw_tiles_host_large {c['dtw_tiles_host_large']}, dtw_cells "
-        f"{c['dtw_cells']}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if len(results) != len(reads):
-        raise RuntimeError(f"{len(results)} results for {len(reads)} reads")
 
     by_name = {r.name: r for r in ds.reads}
     n_mapped = n_correct = 0
@@ -335,35 +480,83 @@ def run(device, name: str, smi: str) -> None:
             lo = res.fragment_start_position
             if not (lo + res.fragment_length < r.ref_start or lo > r.ref_end):
                 n_correct += 1
-    log(f"[map] mapped_frac {n_mapped / len(reads):.4f}, correct_frac "
+    log(f"[hybrid] mapped_frac {n_mapped / len(reads):.4f}, correct_frac "
         f"{n_correct / len(reads):.4f}")
 
-    got = {res.read_name: strip_time(paf.paf_line(res)) for res in results}
+    hybrid = {res.read_name: strip_time(paf.paf_line(res)) for res in results}
     t0 = time.perf_counter()
+    golden = {}
     for r in ds.reads[:N_GOLDEN]:
-        want = strip_time(paf.paf_line(gengine.map_read(idx, r.signal, r.name, mo)))
-        if got[r.name] != want:
+        golden[r.name] = strip_time(
+            paf.paf_line(gengine.map_read(idx, r.signal, r.name, mo)))
+        if hybrid[r.name] != golden[r.name]:
             raise RuntimeError(f"PAF differs from the golden engine for "
-                               f"{r.name}:\n  golden {want}\n  port   {got[r.name]}")
+                               f"{r.name}:\n  golden {golden[r.name]}\n"
+                               f"  port   {hybrid[r.name]}")
     log(f"[golden] first {N_GOLDEN} reads byte-identical to golden.engine "
         f"(mt:f stripped) in {time.perf_counter() - t0:.1f} s")
 
+    # ---- phase 5: the all-device path
+    engine = MappingEngine(idx, mo, device=device, batch_size=32,
+                           pipeline_depth=8, stage1_impl="device",
+                           chain_impl="device")
+    chain_round = []
+    chain_dp = engine._chain_dp
+
+    def capture_chain(packed, a):
+        if not chain_round:
+            chain_round.append((packed.copy(), a))
+        return chain_dp(packed, a)
+
+    engine._chain_dp = capture_chain
+    t0 = time.perf_counter()
+    list(engine.map_reads(reads))
+    torch.cuda.synchronize()
+    log(f"[device] warm pass {time.perf_counter() - t0:.2f} s")
+    del engine._chain_dp
+    if not chain_round:
+        raise RuntimeError("the warm pass ran no chain round")
+
+    rec_events = check_events(ds, mo, device)
+    rec_chain = check_chain(engine, chain_round[0], device)
+    results, launches = timed_pass(
+        engine, reads,
+        {"event_detect": events_cuda, "sketch_scan": sketch_cuda,
+         "chain_dp": chain_cuda, "dtw_banded": dtw_cuda},
+        "device", smi)
+    engine.close()
+    device_lines = {res.read_name: strip_time(paf.paf_line(res))
+                    for res in results}
+    bad = [n for n in hybrid if device_lines.get(n) != hybrid[n]]
+    if bad or len(device_lines) != len(hybrid):
+        n0 = bad[0] if bad else None
+        raise RuntimeError(
+            f"all-device PAF differs from the hybrid PAF on {len(bad)} reads; "
+            f"first {n0}:\n  hybrid {hybrid.get(n0)}\n  device {device_lines.get(n0)}")
+    for n, want in golden.items():
+        if device_lines[n] != want:
+            raise RuntimeError(f"all-device PAF differs from golden for {n}")
+    log(f"[device] all {len(device_lines)} PAF lines byte-identical to the "
+        f"hybrid pass (mt:f stripped), the first {N_GOLDEN} to golden.engine")
+
+    def rec(kname, src, replaces, r):
+        return {"name": kname, "route": "cuda",
+                "source": f"rawalign_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": launches[kname],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"]}
+
     kernels = [
-        {"name": "sketch_scan", "route": "cuda",
-         "source": "rawalign_tpu_torch/csrc/sketch_scan.cu",
-         "replaces": "rawalign_tpu/seeds/sketch_pallas.py:83",
-         "launches": launches["sketch_scan"],
-         "max_abs_err": rec_sketch["max_abs_err"],
-         "ms": rec_sketch["ms"], "plain_ms": rec_sketch["plain_ms"]},
-        {"name": "dtw_banded", "route": "cuda",
-         "source": "rawalign_tpu_torch/csrc/dtw_banded.cu",
-         "replaces": "rawalign_tpu/map/dtw_pallas.py:249",
-         "launches": launches["dtw_banded"],
-         "max_abs_err": rec_dtw["max_abs_err"],
-         "ms": rec_dtw["ms"], "plain_ms": rec_dtw["plain_ms"]},
+        rec("event_detect", "event_detect.cu",
+            "rawalign_tpu/signal/events_pallas.py:229", rec_events),
+        rec("sketch_scan", "sketch_scan.cu",
+            "rawalign_tpu/seeds/sketch_pallas.py:83", rec_sketch),
+        rec("chain_dp", "chain_dp.cu",
+            "rawalign_tpu/map/chain_pallas.py:162", rec_chain),
+        rec("dtw_banded", "dtw_banded.cu",
+            "rawalign_tpu/map/dtw_pallas.py:249", rec_dtw),
     ]
-    if min(launches.values()) == 0 or c["dtw_tiles_device"] == 0:
-        raise RuntimeError("the main path did not run both kernels")
+    log(f"[smoke] total wall {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

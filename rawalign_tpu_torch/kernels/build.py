@@ -14,6 +14,7 @@ Every entry point takes its pointers and the CUDA stream as
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -32,11 +33,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNELS = ("sketch_scan", "dtw_banded")
+KERNELS = ("sketch_scan", "dtw_banded", "event_detect", "chain_dp")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-#: seconds each kernel's build took in this process (0.0 when reused)
+#: seconds each kernel's nvcc build took in this process (0.0 when a
+#: library built by an earlier process was reused)
 build_seconds: dict[str, float] = {}
 
 
@@ -70,7 +72,7 @@ def _target(name: str) -> tuple[str, str]:
 def _build(name: str) -> str:
     src, so = _target(name)
     if os.path.exists(so):
-        build_seconds[name] = 0.0
+        build_seconds.setdefault(name, 0.0)
         return so
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -90,6 +92,13 @@ def _build(name: str) -> str:
         )
     os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
     return so
+
+
+def build_all(names=KERNELS) -> None:
+    """Build ``names`` at once: one nvcc process per source, all started
+    together (a process that loads them later finds them built)."""
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
+        list(pool.map(_build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

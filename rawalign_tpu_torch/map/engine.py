@@ -1,7 +1,7 @@
-"""The batched mapping engine, hybrid path (port of
-rawalign_tpu/map/engine.py).
+"""The batched mapping engine (port of rawalign_tpu/map/engine.py).
 
-One mapping round of a group of ``batch_size`` read slots:
+One mapping round of a group of ``batch_size`` read slots, on the
+default hybrid path:
 
   host (native C)               device (PyTorch + CUDA kernels)
     detect events of the next
@@ -16,15 +16,28 @@ One mapping round of a group of ``batch_size`` read slots:
     primary chains, MAPQ,
     decisions, carried anchors
 
+Two other placements are ported, each selectable alone:
+
+* ``stage1_impl="device"`` uploads the raw chunks and detects the events
+  on the device (CUDA event kernel, the golden detector's semantics bit
+  for bit, so the events equal the hybrid path's) before the same
+  sketch/lookup body.
+* ``chain_impl="device"`` expands the anchors on the host, runs the
+  chaining DP on the device (CUDA chain kernel; one upload, one fetch)
+  and finishes the round in Python: traceback, DTW tile descriptors,
+  B&B replay, primary chains, MAPQ and the decision, as the JAX engine's
+  Python tail does.
+
 ``pipeline_depth`` groups advance round-robin as generators that yield
-at every device wait, so one group's host C overlaps another group's
+at every device wait, so one group's host work overlaps another group's
 device work. Slots are position-stable and refilled as reads finish
 (continuous batching).
 
-Only the path ``rawalign_tpu``'s engine takes by default with the native
-library built is ported: stage1 "hybrid", chain DP "native" and the
-native round tail. Every other mode raises ``NotImplementedError``; a
-missing native library raises ``RuntimeError``. Nothing switches mode.
+``"auto"`` picks the native placement when the native library has it, as
+the JAX engine does. ``stage1_impl="host"``, ``fused=True``, minimizer
+presets and the flags that need the Python chain structure at emit
+(CIGAR, chain output, logs) raise ``NotImplementedError``; a native
+library without what the chosen placements need raises ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -39,17 +52,21 @@ import torch
 
 from rawalign_tpu import native
 from rawalign_tpu.config import MappingFlag, MappingOptions
+from rawalign_tpu.golden import chain as gchain
+from rawalign_tpu.golden import engine as gengine
 from rawalign_tpu.golden import events as gevents
 from rawalign_tpu.index.index import RawIndex
 from rawalign_tpu.io import paf
 from rawalign_tpu.map import anchors as manchors
+from rawalign_tpu.map import postprocess
 from rawalign_tpu.map.postprocess import BorderConstraint, FillMethod
 from rawalign_tpu_torch import runtime
 from rawalign_tpu_torch.index import query
-from rawalign_tpu_torch.map import stage1_codec, tiles
+from rawalign_tpu_torch.map import chain, stage1_codec, tiles
 from rawalign_tpu_torch.seeds import sketch
+from rawalign_tpu_torch.signal import events
 
-#: flags whose output needs the Python chain tail of the JAX engine
+#: flags whose output needs host events or chain structure at emit
 PYTHON_TAIL_FLAGS = (
     MappingFlag.DTW_OUTPUT_CIGAR
     | MappingFlag.OUTPUT_CHAINS
@@ -62,7 +79,7 @@ PYTHON_TAIL_FLAGS = (
 class _ReadState:
     __slots__ = (
         "name", "signal", "qlen", "chunk_ptr", "chunks_done", "offset",
-        "ev_total", "carried", "fin", "done", "map_time",
+        "ev_total", "chains", "carried", "fin", "done", "map_time",
     )
 
     def __init__(self, name: str, signal: np.ndarray):
@@ -75,13 +92,27 @@ class _ReadState:
         self.offset = 0
         # all events ever detected = write offset into the history row
         self.ev_total = 0
+        # the Python tail's chains (device chain path)
+        self.chains: list[gchain.Chain] = []
         # carried anchors for the next round and the emit-field record,
-        # both from the native round finalize
+        # both from the native round finalize (native chain path)
         self.carried: tuple | None = None
         self.fin: dict | None = None
         self.done = False
         # wall time of the rounds this read was live in (mt:f)
         self.map_time = 0.0
+
+
+def _carried_from_chains(chains: list[gchain.Chain]) -> tuple:
+    """Every anchor of ``chains`` as (seg, target, query) int64 arrays,
+    chain by chain: the next round re-injects them (rmap.cpp:343-362)."""
+    seg = np.concatenate([
+        np.full(c.anchors.shape[0], c.reference_sequence_index * 2 + c.strand,
+                np.int64)
+        for c in chains
+    ])
+    a = np.concatenate([c.anchors for c in chains]).astype(np.int64)
+    return seg, a[:, 0].copy(), a[:, 1].copy()
 
 
 class MappingEngine:
@@ -107,16 +138,14 @@ class MappingEngine:
         stage1_impl: str = "hybrid",
         fused: bool = False,
     ):
-        if chain_impl not in ("auto", "native"):
-            raise NotImplementedError(
-                f"chain_impl={chain_impl!r}: the port runs the chain DP in "
-                "the native host library only"
+        if chain_impl not in ("auto", "native", "device"):
+            raise ValueError(f"chain_impl must be auto|native|device: {chain_impl}")
+        if stage1_impl not in ("auto", "hybrid", "device", "host"):
+            raise ValueError(
+                f"stage1_impl must be auto|hybrid|device|host: {stage1_impl}"
             )
-        if stage1_impl not in ("auto", "hybrid"):
-            raise NotImplementedError(
-                f"stage1_impl={stage1_impl!r}: the port implements the "
-                "hybrid stage1 only"
-            )
+        if stage1_impl == "host":
+            raise NotImplementedError("stage1_impl='host' is not ported")
         if fused:
             raise NotImplementedError("fused stage1+chain is not ported")
         if index.opt.w:
@@ -125,18 +154,38 @@ class MappingEngine:
             )
         if opt.flag & PYTHON_TAIL_FLAGS:
             raise NotImplementedError(
-                "CIGAR output, chain output and the log flags need the "
-                "Python chain tail, which is not ported"
+                "CIGAR output, chain output and the log flags need host "
+                "events or chain structure at emit, which is not ported"
             )
         if mt_mode not in ("share", "wall"):
             raise ValueError(f"mt_mode must be share|wall: {mt_mode}")
-        if not (native.available() and native.events_available()
-                and native.chain_dp_available()
-                and native.round_tail_available()):
-            raise RuntimeError(
-                "rawalign_tpu_torch needs the native host library with "
-                "events, chain DP and round tail (make -C native)"
+        if chain_impl == "auto":
+            chain_impl = (
+                "native"
+                if native.chain_dp_available() and native.round_tail_available()
+                else "device"
             )
+        if stage1_impl == "auto":
+            stage1_impl = "hybrid" if native.events_available() else "device"
+        # anchor expansion, oversized DTW tiles and the traceback run in
+        # the native library on every path
+        need = {"its core": native.available()}
+        if stage1_impl == "hybrid":
+            need["events"] = native.events_available()
+        if chain_impl == "native":
+            need["chain DP"] = native.chain_dp_available()
+            need["round tail"] = native.round_tail_available()
+        else:
+            need["traceback"] = native.chains_from_dp_available()
+        missing = [k for k, ok in need.items() if not ok]
+        if missing:
+            raise RuntimeError(
+                f"stage1_impl={stage1_impl!r} with chain_impl={chain_impl!r} "
+                f"needs the native host library with {', '.join(missing)} "
+                "(make -C native)"
+            )
+        self.stage1_impl = stage1_impl
+        self.chain_impl = chain_impl
         stage1_codec.validate_bounds(opt.max_events_per_chunk, max_occ)
         self.device = runtime.device(device)
         self.index = index
@@ -145,8 +194,8 @@ class MappingEngine:
         self.batch_size = batch_size
         self.max_occ = max_occ
         self.max_anchors = max_anchors
-        # the host chain DP sizes its arrays to the round's demand up
-        # to this ceiling and decimates only beyond it
+        # the chain DP sizes its arrays to the round's demand up to this
+        # ceiling and decimates only beyond it
         self.max_anchors_ceiling = (
             max(1 << 17, max_anchors)
             if max_anchors_ceiling is None
@@ -235,19 +284,46 @@ class MappingEngine:
     # ------------------------------------------------------------------
     def _stage1(self, packed_ev: np.ndarray, hist: torch.Tensor,
                 hist_off: np.ndarray) -> torch.Tensor:
-        """Device stage1 of one round. ``packed_ev`` (B, ne+2): event
-        values | n_events | n_dropped, detected on the host. Appends the
-        events to ``hist`` in place — the JAX engine donates this buffer
-        to its jitted stage and gets a new one back; here it is simply
-        updated. Returns the packed stage1 output (B, 2*ns + 4)."""
+        """Hybrid stage1: ``packed_ev`` (B, ne+2) holds event values |
+        n_events | n_dropped, detected on the host."""
+        ne = self.opt.max_events_per_chunk
+        x = runtime.put(packed_ev, self.device)
+        return self._stage1_post(
+            x[:, :ne].contiguous(), x[:, ne].to(torch.int32),
+            x[:, ne + 1].to(torch.int32), hist, hist_off,
+        )
+
+    def _stage1_device(self, packed_sig: np.ndarray, hist: torch.Tensor,
+                       hist_off: np.ndarray) -> torch.Tensor:
+        """Device stage1: ``packed_sig`` (B, chunk_size+1) holds each
+        slot's raw chunk | its length; the events are detected on the
+        device."""
         opt = self.opt
+        L = opt.chunk_size
+        x = runtime.put(packed_sig, self.device)
+        ev = events.detect_events_batch(
+            x[:, :L], x[:, L].to(torch.int32),
+            w1=opt.window_length1,
+            w2=opt.window_length2,
+            threshold1=opt.threshold1,
+            threshold2=opt.threshold2,
+            peak_height=opt.peak_height,
+            max_events=opt.max_events_per_chunk,
+        )
+        return self._stage1_post(ev.values, ev.n_events, ev.n_dropped, hist,
+                                 hist_off)
+
+    def _stage1_post(self, ev_values: torch.Tensor, ev_n: torch.Tensor,
+                     ev_nd: torch.Tensor, hist: torch.Tensor,
+                     hist_off: np.ndarray) -> torch.Tensor:
+        """Sketch, seed compaction, lookup and history append on one
+        round's events (B, ne). Appends the events to ``hist`` in place —
+        the JAX engine donates this buffer to its jitted stage and gets a
+        new one back; here it is simply updated. Returns the packed
+        stage1 output (B, 2*ns + 4)."""
         io = self.index.opt
         dev = self.device
-        ne = opt.max_events_per_chunk
-        x = runtime.put(packed_ev, dev)
-        ev_values = x[:, :ne].contiguous()
-        ev_n = x[:, ne].to(torch.int32)
-        ev_nd = x[:, ne + 1].to(torch.int32)
+        ne = self.opt.max_events_per_chunk
         seeds = sketch.sketch_events_batch(
             ev_values, ev_n, e=io.e, q=io.q, lq=io.lq
         )
@@ -360,7 +436,6 @@ class MappingEngine:
         B = self.batch_size
         L = opt.chunk_size
         ne = opt.max_events_per_chunk
-        packed_in = np.zeros((B, ne + 2), dtype=np.float32)
         hist_off = np.zeros(B, dtype=np.int32)
         carried_lists: dict[int, tuple] = {}
         live: list = []
@@ -371,26 +446,38 @@ class MappingEngine:
             hist_off[i] = st.ev_total
             if st.carried is not None:
                 carried_lists[i] = st.carried
+            elif st.chains:
+                carried_lists[i] = _carried_from_chains(st.chains)
 
-        def detect(item):
-            # native C detector (revent.c semantics); rows are disjoint
-            i, part = item
-            evs = (gevents.detect_events_fast(part, opt) if part.size
-                   else np.zeros(0, np.float32))
-            dropped = max(evs.size - ne, 0)
-            evs = evs[:ne]
-            packed_in[i, : evs.size] = evs
-            packed_in[i, ne] = evs.size
-            packed_in[i, ne + 1] = dropped
+        if self.stage1_impl == "device":
+            stage1 = self._stage1_device
+            packed_in = np.zeros((B, L + 1), dtype=np.float32)
+            for i, part in live:
+                packed_in[i, : part.size] = part
+                packed_in[i, L] = part.size
+        else:
+            stage1 = self._stage1
+            packed_in = np.zeros((B, ne + 2), dtype=np.float32)
 
-        list(self._pool.map(detect, live))
+            def detect(item):
+                # native C detector (revent.c semantics); rows are disjoint
+                i, part = item
+                evs = (gevents.detect_events_fast(part, opt) if part.size
+                       else np.zeros(0, np.float32))
+                dropped = max(evs.size - ne, 0)
+                evs = evs[:ne]
+                packed_in[i, : evs.size] = evs
+                packed_in[i, ne] = evs.size
+                packed_in[i, ne + 1] = dropped
+
+            list(self._pool.map(detect, live))
         mark("build_inputs")
 
         hist = self._group_hist.get(g)
         if hist is None:
             hist = torch.zeros((B, self._hmax), device=self.device)
             self._group_hist[g] = hist
-        pending = runtime.fetch_async(self._stage1(packed_in, hist, hist_off))
+        pending = runtime.fetch_async(stage1(packed_in, hist, hist_off))
         yield  # other groups' host work overlaps this device work
         s1 = stage1_codec.unpack_stage1(
             pending.result(), ne=ne, ns=self._ns_out, events_on_host=False
@@ -416,8 +503,9 @@ class MappingEngine:
     # ------------------------------------------------------------------
     def _round_tail(self, slots, g, carried_lists, chain_this_round,
                     h_lo, h_qpos, h_count, ev_counts, mark, charge_round):
-        """Anchor expansion -> chain DP -> chain records and DTW tile
-        descriptors, in host C on the worker pool."""
+        """Anchor expansion -> chain DP -> traceback, DTW and decisions:
+        in host C on the worker pool (native chain), or with the chain DP
+        on the device and a Python tail (device chain)."""
         opt = self.opt
         B = self.batch_size
         if not chain_this_round.any():
@@ -450,12 +538,52 @@ class MappingEngine:
         use_dtw = bool(opt.flag & MappingFlag.DTW_EVALUATE_CHAINS)
         io = self.index.opt
 
-        def work():
-            _, _, dropped = manchors.expand_round(
+        def expand():
+            # hits and carried anchors into the (B, A) blocks; returns
+            # (max_used, max_true, dropped)
+            return manchors.expand_round(
                 h_lo, h_qpos, h_count, chain_this_round, read_offsets,
                 carried_lists, self._h_val_id, self._h_val_ps, A,
                 seg_b, tgt_b, qry_b, n_anch,
             )
+
+        if self.chain_impl == "device":
+            max_used, _max_true, dropped = expand()
+            self.counters["anchors_dropped"] += dropped
+            mark("host_anchors")
+            # the anchor axis bucketed to powers of two from 256
+            a = 256
+            while a < max_used:
+                a *= 2
+            a = min(a, A)
+            packed = np.empty((B, 3 * a + 1), dtype=np.int32)
+            packed[:, :a] = seg_b[:, :a]
+            packed[:, a : 2 * a] = tgt_b[:, :a]
+            packed[:, 2 * a : 3 * a] = qry_b[:, :a]
+            packed[:, 3 * a] = n_anch
+            pending = runtime.fetch_async(self._chain_dp(packed, a))
+            yield
+            dp = pending.result()
+            scores = dp[:, :a]
+            preds = dp.view(np.int32)[:, a:]
+            mark("chain_dp")
+            per_read_chains: dict[int, list[gchain.Chain]] = {}
+            for i in np.nonzero(chain_this_round)[0]:
+                chains = postprocess.chains_from_dp_fast(
+                    seg_b[i], tgt_b[i], qry_b[i], scores[i], preds[i],
+                    int(n_anch[i]), opt,
+                )
+                if use_dtw:
+                    chains.sort(key=lambda c: c.chaining_score, reverse=True)
+                per_read_chains[int(i)] = chains
+            yield from self._round_tail_post(
+                slots, g, per_read_chains, chain_this_round, ev_counts,
+                use_dtw, mark, charge_round,
+            )
+            return
+
+        def work():
+            _, _, dropped = expand()
             scores, preds = native.chain_dp(
                 seg_b, tgt_b, qry_b, n_anch,
                 window=self.chain_window,
@@ -495,6 +623,88 @@ class MappingEngine:
             slots, g, rec, chain_this_round, ev_counts, use_dtw, mark,
             charge_round,
         )
+
+    def _chain_dp(self, packed: np.ndarray, a: int) -> torch.Tensor:
+        """Device chain DP on ``packed`` (B, 3a+1) int32: seg | target |
+        query | n_anchors. Returns (B, 2a) float32: scores | preds
+        bitcast."""
+        opt = self.opt
+        x = runtime.put(packed, self.device)
+        dp = chain.chain_dp_batch(
+            x[:, :a].contiguous(),
+            x[:, a : 2 * a].contiguous(),
+            x[:, 2 * a : 3 * a].contiguous(),
+            x[:, 3 * a].contiguous(),
+            window=self.chain_window,
+            e=self.index.opt.e,
+            max_gap=opt.max_gap_length,
+            max_target_gap=opt.max_target_gap_length,
+            max_skips=opt.max_num_skips,
+        )
+        return torch.cat([dp.scores, dp.preds.view(torch.float32)], dim=1)
+
+    # ------------------------------------------------------------------
+    def _round_tail_post(self, slots, g, per_read_chains, chain_this_round,
+                         ev_counts, use_dtw, mark, charge_round):
+        """The Python round tail: DTW tiles of every chain -> B&B replay
+        -> primary chains and MAPQ -> decisions."""
+        opt = self.opt
+        descs: list[np.ndarray] = []
+        # each (read, chain)'s [start, end) run of tiles
+        runs: dict[tuple[int, int], tuple[int, int]] = {}
+        n_tiles = 0
+        if use_dtw:
+            lref = self._ref_cat_host.size
+            for i, chains in per_read_chains.items():
+                # tiles index this slot's device event-history row
+                ev_base = lref + i * self._hmax
+                for ci, ch in enumerate(chains):
+                    rows = postprocess.build_chain_tile_descs_vec(
+                        ch, self._sig_base[(ch.strand, ch.reference_sequence_index)],
+                        ev_base, opt,
+                    )
+                    if len(rows):
+                        descs.append(rows)
+                        runs[(i, ci)] = (n_tiles, n_tiles + len(rows))
+                        n_tiles += len(rows)
+        mark("traceback")
+        if descs:
+            da = np.concatenate(descs)
+            pending = self._dtw_submit(
+                da, self._group_hist[g], self._make_ev_fetch(g)
+            )
+            mark("dtw_prep")
+            yield
+            costs = tiles.dtw_collect(pending)
+            mark("dtw")
+            self.counters["dtw_tiles"] += int(da.shape[0])
+            self.counters["dtw_cells"] += int(np.sum(
+                da[:, 1] * np.minimum(2 * da[:, 4] + 1, da[:, 3])
+            ))
+            empty = np.zeros(0, dtype=np.float32)
+            for i, chains in per_read_chains.items():
+                part_costs = [
+                    costs[r[0] : r[1]] if (r := runs.get((i, ci))) else empty
+                    for ci in range(len(chains))
+                ]
+                per_read_chains[i] = postprocess.bnb_replay(chains, part_costs, opt)
+        for i, st in enumerate(slots):
+            if st is None:
+                continue
+            st.chunk_ptr += opt.chunk_size
+            st.chunks_done += 1
+            if not chain_this_round[i]:
+                continue
+            st.offset += int(ev_counts[i])
+            chains = per_read_chains.get(i, [])
+            if chains:
+                chains = gchain.gen_primary_chains(chains, opt)
+                gchain.comp_mapq(chains, opt)
+            st.chains = chains
+            if self._decision(st):
+                st.done = True
+        mark("finalize")
+        charge_round()
 
     # ------------------------------------------------------------------
     def _round_tail_post_native(self, slots, g, rec, chain_this_round,
@@ -595,6 +805,11 @@ class MappingEngine:
         return fetch
 
     # ------------------------------------------------------------------
+    def _decision(self, st: _ReadState) -> bool:
+        shim = gengine.ReadState(read_name=st.name)
+        shim.chains = st.chains
+        return gengine.is_mapped_with_high_confidence(shim, self.opt)
+
     def _emit(self, st: _ReadState) -> paf.MappingResult:
         opt = self.opt
         self.counters["reads_processed"] += 1
@@ -603,17 +818,14 @@ class MappingEngine:
             ci, opt.chunk_size, st.offset or 1, opt.sample_rate, opt.bp_per_sec
         )
         mapping_time_ms = st.map_time * 1000.0
+        if st.fin is not None:
+            return self._emit_native(st, ci, scale, mapping_time_ms)
+        return self._emit_chains(st, ci, scale, mapping_time_ms)
+
+    def _emit_native(self, st: _ReadState, ci: int, scale,
+                     mapping_time_ms: float) -> paf.MappingResult:
+        """Emit from the native round finalize's record."""
         f = st.fin
-        if f is None:  # never chained: no chains, unmapped
-            return paf.MappingResult(
-                read_name=st.name,
-                read_length=paf.scale_pos(scale, st.offset),
-                mapped=False,
-                mapq=0,
-                tags=paf.build_tags(
-                    mapping_time_ms=mapping_time_ms, n_chunks=ci, qlen=st.qlen
-                ),
-            )
         if f["nc"]:
             tags = paf.build_tags(
                 mapping_time_ms=mapping_time_ms,
@@ -658,5 +870,83 @@ class MappingEngine:
             fragment_length=int(f["end_t"] - f["start_t"] + 1),
             rev=strand,
             mapq=f["mapq"],
+            tags=tags,
+        )
+
+    def _emit_chains(self, st: _ReadState, ci: int, scale,
+                     mapping_time_ms: float) -> paf.MappingResult:
+        """Emit from the read's Python chains (rmap.cpp:700-802); also the
+        form of a read that never chained (no chains, unmapped)."""
+        chains = st.chains
+        n_anchors0 = chains[0].n_anchors if chains else 0
+        mean_score = paf.mean_score_f32([c.chaining_score for c in chains])
+        if self._decision(st):
+            self.counters["reads_mapped"] += 1
+            c0 = chains[0]
+            # f32 left-fold of per-pair deltas + f32 division, exactly
+            # the reference's accumulation (rmap.cpp:719-729)
+            at, aq = paf.anchor_gap_means_f32(c0.anchors)
+            tags = paf.build_tags(
+                mapping_time_ms=mapping_time_ms,
+                n_chunks=ci,
+                qlen=st.qlen,
+                n_anchors0=n_anchors0,
+                n_chains=len(chains),
+                s1=c0.chaining_score,
+                s2=chains[1].chaining_score if len(chains) > 1 else 0.0,
+                sm=mean_score,
+                at=at,
+                aq=aq,
+                mapped_with_chains=True,
+            )
+            ref_len = int(self.index.seq_lens[c0.reference_sequence_index])
+            frag_start = (
+                int(ref_len + 1 - c0.end_position)
+                if c0.strand
+                else int(c0.start_position)
+            )
+            return paf.MappingResult(
+                read_name=st.name,
+                read_length=paf.scale_pos(scale, c0.anchors[0][1]),
+                mapped=True,
+                read_start_position=paf.scale_pos(
+                    scale, c0.anchors[n_anchors0 - 1][1]
+                ),
+                read_end_position=paf.scale_pos(scale, c0.anchors[0][1]),
+                ref_name=self.index.seq_names[c0.reference_sequence_index],
+                ref_len=ref_len,
+                fragment_start_position=frag_start,
+                fragment_length=int(c0.end_position - c0.start_position + 1),
+                rev=c0.strand,
+                mapq=c0.mapq,
+                tags=tags,
+            )
+        if chains:
+            c0 = chains[0]
+            if n_anchors0:
+                at, aq = paf.anchor_gap_means_f32(c0.anchors)
+            else:
+                at = aq = 0.0
+            tags = paf.build_tags(
+                mapping_time_ms=mapping_time_ms,
+                n_chunks=ci,
+                qlen=st.qlen,
+                n_anchors0=n_anchors0,
+                n_chains=len(chains),
+                s1=c0.chaining_score,
+                s2=chains[1].chaining_score if len(chains) > 1 else 0.0,
+                sm=mean_score,
+                at=at,
+                aq=aq,
+            )
+        else:
+            tags = paf.build_tags(
+                mapping_time_ms=mapping_time_ms, n_chunks=ci, qlen=st.qlen
+            )
+        return paf.MappingResult(
+            read_name=st.name,
+            read_length=paf.scale_pos(scale, st.offset),
+            mapped=False,
+            mapq=0,
             tags=tags,
         )

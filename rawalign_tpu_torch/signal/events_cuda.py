@@ -1,0 +1,87 @@
+"""Wrapper of the event-detection CUDA kernel (``csrc/event_detect.cu``).
+
+Port of rawalign_tpu/signal/events_pallas.py (with the compaction, event
+means and z-norm of rawalign_tpu/signal/events.py). :func:`detect_events`
+runs the kernel on CUDA tensors and the plain PyTorch version
+(``signal/events.py:detect_events_plain``) on CPU tensors; any other
+device raises. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from rawalign_tpu_torch.kernels import build
+from rawalign_tpu_torch.signal import events
+
+#: shared memory a block may use on Hopper (bytes); a block keeps
+#: 4 (L + 1) float words there, or in a device buffer when they do not fit
+MAX_SMEM = 232448
+#: bytes of the kernel's static shared memory (event count, mean, std)
+_STATIC_SMEM = 64
+
+launches = 0
+
+
+@functools.cache
+def _entry():
+    fn = build.load("event_detect").ra_event_detect
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    f = ctypes.c_float
+    i64 = ctypes.c_int64
+    fn.argtypes = [i, p, i64, p, i, i, i, i, f, f, f, i, p, i64, p, p, p, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def detect_events(sig: torch.Tensor, length: torch.Tensor, *, w1: int,
+                  w2: int, threshold1: float, threshold2: float,
+                  peak_height: float, max_events: int) -> events.EventBatch:
+    """Events of each row of ``sig`` (B, L) float32 (unit column stride)
+    over its first ``length`` (B,) int32 samples: the outputs of
+    ``events.detect_events_plain``."""
+    global launches
+    kw = dict(w1=w1, w2=w2, threshold1=threshold1, threshold2=threshold2,
+              peak_height=peak_height, max_events=max_events)
+    if sig.device.type == "cpu":
+        return events.detect_events_plain(sig, length, **kw)
+    if sig.device.type != "cuda":
+        raise ValueError(f"detect_events: unsupported device {sig.device}")
+    if sig.dtype != torch.float32 or sig.dim() != 2 or (
+            sig.shape[1] > 1 and sig.stride(1) != 1):
+        raise ValueError("detect_events: sig must be a 2-D float32 tensor "
+                         "with unit column stride")
+    B, L = sig.shape
+    if (length.device != sig.device or length.dtype != torch.int32
+            or tuple(length.shape) != (B,) or not length.is_contiguous()):
+        raise ValueError("detect_events: length must be contiguous int32 (B,) "
+                         "on the signal's device")
+    if max_events < 0:
+        raise ValueError(f"detect_events: max_events={max_events}")
+    dev = sig.device
+    values = torch.empty((B, max_events), dtype=torch.float32, device=dev)
+    n_events = torch.empty(B, dtype=torch.int32, device=dev)
+    n_dropped = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        smem = 16 * (L + 1)
+        scratch = None
+        if smem + _STATIC_SMEM > MAX_SMEM:
+            scratch = torch.empty(B * 4 * (L + 1), dtype=torch.float32,
+                                  device=dev)
+            smem = 0
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entry()(
+            dev.index, sig.data_ptr(), sig.stride(0), length.data_ptr(), B, L,
+            w1, w2, threshold1, threshold2, peak_height, max_events,
+            None if scratch is None else scratch.data_ptr(), smem,
+            values.data_ptr(), n_events.data_ptr(), n_dropped.data_ptr(),
+            stream,
+        )
+        build.check(err, "ra_event_detect")
+        launches += 1
+    return events.EventBatch(values=values, n_events=n_events,
+                             n_dropped=n_dropped)

@@ -5,19 +5,36 @@ This file imports no JAX, so on a machine without it run it as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Comparisons are exact (torch.equal): kernel and plain version do the
-same uint32 arithmetic and the same float32 sub/abs/min/add per cell, in
-the same order, and the kernels are built with --fmad=false.
+Comparisons are exact (torch.equal, or NaN-for-NaN equality where a
+chunk's z-norm divides by a zero deviation): kernel and plain version do
+the same integer, float32 and float64 operations in the same order, and
+the kernels are built with --fmad=false. The event and chain kernels
+are also held to the native C detector and chaining DP.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rawalign_tpu_torch.map import dtw, dtw_cuda, tiles
+from rawalign_tpu import config, native
+from rawalign_tpu.golden import events as gevents
+from rawalign_tpu_torch.map import chain, chain_cuda, dtw, dtw_cuda, tiles
 from rawalign_tpu_torch.seeds import sketch, sketch_cuda
+from rawalign_tpu_torch.signal import events, events_cuda
 
 pytestmark = pytest.mark.cuda
+
+OPT = config.MappingOptions()
+EV_KW = dict(w1=OPT.window_length1, w2=OPT.window_length2,
+             threshold1=OPT.threshold1, threshold2=OPT.threshold2,
+             peak_height=OPT.peak_height)
+CHAIN_KW = dict(e=6, max_gap=2000, max_target_gap=5000, max_skips=25)
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal element for element, NaN matching NaN."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
 
 
 @pytest.fixture
@@ -94,10 +111,102 @@ def test_dtw_kernel_matches_plain(dev, full_fill, max_len, n_tiles):
     assert torch.equal(got, want)
 
 
-def test_engine_on_the_card_matches_golden(dev):
+def _event_rows(rng, L):
+    """Synthetic noisy steps of varying length plus the edge cases: an
+    empty row, a constant row, a one-event row (NaN z-norm), a row too
+    short for the long window."""
+    rows = []
+    for _ in range(24):
+        n = int(rng.integers(L // 2, L + 1))
+        levels = rng.normal(95.0, 12.0, n // 8 + 1)
+        rows.append((np.repeat(levels, 8)[:n]
+                     + rng.normal(0.0, 1.5, n)).astype(np.float32))
+    step = np.concatenate([np.full(L // 4, 90.0), np.full(L // 4, 110.0)])
+    rows += [np.zeros(0, np.float32), np.full(L // 2, 95.0, np.float32),
+             step.astype(np.float32),
+             rng.normal(95.0, 10.0, 9).astype(np.float32)]
+    sig = np.zeros((len(rows), L), np.float32)
+    lens = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        sig[i, : r.size] = r
+        lens[i] = r.size
+    return rows, sig, lens
+
+
+@pytest.mark.parametrize("L,max_events", [(4000, 2048), (997, 32), (20000, 4096)])
+def test_event_kernel_matches_plain_and_native(dev, L, max_events):
+    """L = 20000 exceeds shared memory: the block's scratch lives in a
+    device buffer."""
+    rng = np.random.default_rng(L)
+    rows, sig, lens = _event_rows(rng, L)
+    sig_d = torch.from_numpy(sig).to(dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    before = events_cuda.launches
+    got = events_cuda.detect_events(sig_d, lens_d, max_events=max_events, **EV_KW)
+    want = events.detect_events_plain(sig_d, lens_d, max_events=max_events,
+                                      **EV_KW)
+    torch.cuda.synchronize()
+    assert events_cuda.launches == before + 1
+    assert torch.equal(got.n_events, want.n_events)
+    assert torch.equal(got.n_dropped, want.n_dropped)
+    assert _same(got.values, want.values)
+    values = got.values.cpu().numpy()
+    for i, r in enumerate(rows):
+        ev = gevents.detect_events_fast(r, OPT) if r.size else np.zeros(0)
+        n = int(got.n_events[i])
+        assert n == min(ev.size, max_events)
+        np.testing.assert_array_equal(values[i, :n], ev[:max_events])
+    assert int(got.n_events.sum()) > 0
+
+
+def _chain_rows(rng, B, A):
+    seg = np.full((B, A), 0x7FFFFFFF, np.int32)
+    tgt = np.zeros((B, A), np.int32)
+    qry = np.zeros((B, A), np.int32)
+    n = rng.integers(A // 2, A + 1, B).astype(np.int32)
+    n[0] = A
+    for b in range(B):
+        m = int(n[b])
+        s = np.sort(rng.integers(0, 4, m))
+        t = rng.integers(0, 40 * m, m)
+        q = rng.integers(0, 2 * m, m)
+        for k in rng.integers(0, max(1, m - 60), 8):  # co-linear runs
+            run = np.arange(min(60, m - k))
+            s[k : k + run.size] = s[k]
+            t[k : k + run.size] = t[k] + run * 10
+            q[k : k + run.size] = q[k] + run * 9
+        o = np.lexsort((q, t, s))
+        seg[b, :m], tgt[b, :m], qry[b, :m] = s[o], t[o], q[o]
+    return seg, tgt, qry, n
+
+
+@pytest.mark.parametrize("window,B,A", [
+    (8, 32, 2048), (64, 32, 4096), (2048, 8, 1024), (64, 2, 1 << 17),
+])
+def test_chain_kernel_matches_plain_and_native(dev, window, B, A):
+    """At A = 1<<17 (the anchor ceiling) only against native: the plain
+    version would step 131072 anchors one launch sequence at a time."""
+    rng = np.random.default_rng(window + A)
+    seg, tgt, qry, n = _chain_rows(rng, B, A)
+    kw = dict(window=window, **CHAIN_KW)
+    d = [torch.from_numpy(x).to(dev) for x in (seg, tgt, qry, n)]
+    before = chain_cuda.launches
+    got = chain_cuda.chain_dp(*d, **kw)
+    torch.cuda.synchronize()
+    assert chain_cuda.launches == before + 1
+    if A <= 4096:
+        want = chain.chain_dp_plain(*d, **kw)
+        assert torch.equal(got.scores, want.scores)
+        assert torch.equal(got.preds, want.preds)
+    ns, npred = native.chain_dp(seg, tgt, qry, n, **kw)
+    np.testing.assert_array_equal(got.scores.cpu().numpy(), ns)
+    np.testing.assert_array_equal(got.preds.cpu().numpy(), npred)
+    assert (npred != np.arange(A)).any()
+
+
+def _engine_matches_golden(dev, **modes):
     import re
 
-    from rawalign_tpu import config
     from rawalign_tpu.golden import engine as gengine
     from rawalign_tpu.index import index as dindex
     from rawalign_tpu.io import paf
@@ -111,7 +220,7 @@ def test_engine_on_the_card_matches_golden(dev):
     mo.set_flag(config.MappingFlag.DTW_EVALUATE_CHAINS)
     idx = dindex.build_index(ds.seqs, ds.model.pore_vals, io)
     eng = MappingEngine(idx, mo, device=dev, batch_size=4, chain_window=2048,
-                        max_occ=256)
+                        max_occ=256, **modes)
     strip = lambda s: re.sub(r"mt:f:[0-9.]+", "mt:f:X", s)  # noqa: E731
     got = {r.read_name: strip(paf.paf_line(r))
            for r in eng.map_reads((r.name, r.signal) for r in ds.reads)}
@@ -120,3 +229,14 @@ def test_engine_on_the_card_matches_golden(dev):
     for r in ds.reads:
         assert got[r.name] == strip(paf.paf_line(
             gengine.map_read(idx, r.signal, r.name, mo)))
+
+
+def test_engine_on_the_card_matches_golden(dev):
+    _engine_matches_golden(dev)
+
+
+def test_all_device_engine_on_the_card_matches_golden(dev):
+    launched = (events_cuda.launches, chain_cuda.launches)
+    _engine_matches_golden(dev, stage1_impl="device", chain_impl="device")
+    assert events_cuda.launches > launched[0]
+    assert chain_cuda.launches > launched[1]

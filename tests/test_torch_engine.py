@@ -3,7 +3,10 @@
 Comparisons are exact: stage1 outputs are compared array for array and
 PAF lines byte for byte with the mt:f timing tag stripped. The port runs
 the same integer and float32 operations as the JAX package in the same
-order, so no tolerance is needed.
+order, so no tolerance is needed — except against the JAX engine's
+device event detector, which is float32 where golden (and the port) use
+float64: there the tolerance is the one the JAX package holds its own
+device engine to (``tests/test_engine_device.py``).
 """
 
 import os
@@ -79,6 +82,63 @@ def _opts(use_dtw):
     return mo
 
 
+@pytest.fixture(scope="module")
+def golden(setup):
+    """golden(use_dtw) -> {read name: golden PAF line}, computed once."""
+    _ds, idx, reads = setup
+    cache = {}
+
+    def get(use_dtw):
+        if use_dtw not in cache:
+            mo = _opts(use_dtw)
+            cache[use_dtw] = {
+                name: _strip_time(paf.paf_line(gengine.map_read(idx, sig, name, mo)))
+                for name, sig in reads
+            }
+        return cache[use_dtw]
+
+    return get
+
+
+def _map(engine_cls, idx, reads, use_dtw, **kw):
+    """{read name: PAF line} of one engine pass, and the engine."""
+    eng = engine_cls(idx, _opts(use_dtw), **{**ENGINE_KW, **kw})
+    lines = {r.read_name: _strip_time(paf.paf_line(r)) for r in eng.map_reads(reads)}
+    eng.close()
+    return lines, eng
+
+
+def _port(idx, reads, use_dtw, **kw):
+    return _map(MappingEngine, idx, reads, use_dtw, device="cpu",
+                dtw_device_max_n=256, dtw_device_max_b=256, **kw)
+
+
+def _close_to(got: str, want: str) -> bool:
+    """The tolerance of tests/test_engine_device.py for an engine whose
+    event detector is float32: the read name and every mapping column
+    exact, the event-derived read coordinates within 3, the same tags
+    with numeric values within 5%."""
+    g, w = got.split("\t"), want.split("\t")
+    if g[0] != w[0] or g[4:12] != w[4:12]:
+        return False
+    if any(abs(int(a) - int(b)) > 3 for a, b in zip(g[1:4], w[1:4])):
+        return False
+    gt = dict(t.split(":", 1) for t in g[12:])
+    wt = dict(t.split(":", 1) for t in w[12:])
+    if gt.keys() != wt.keys():
+        return False
+    for k in gt:
+        ty, gv = gt[k].split(":", 1)
+        _, wv = wt[k].split(":", 1)
+        if k != "mt" and ty in ("f", "i"):  # mt: timing, masked to X
+            gvf, wvf = float(gv), float(wv)
+            if abs(gvf - wvf) > 0.05 * max(abs(gvf), abs(wvf), 1.0):
+                return False
+        elif gv != wv:
+            return False
+    return True
+
+
 def test_stage1_matches_jax_hybrid_stage1(setup):
     """The device half of one round on given events: packed output and
     the event-history append, against the JAX engine's _stage1_hy."""
@@ -110,6 +170,48 @@ def test_stage1_matches_jax_hybrid_stage1(setup):
     assert (got.count > 0).any()
     jeng.close()
     teng.close()
+
+
+def test_device_stage1_matches_hybrid_stage1(setup):
+    """The device stage1 on raw chunks (events detected by the port)
+    against the hybrid stage1 on the native detector's events: equal
+    packed output and event history, including a dropped-events count."""
+    _ds, idx, reads = setup
+    mo = _opts(False)
+    mo.max_events_per_chunk = 256
+    ne, L = mo.max_events_per_chunk, mo.chunk_size
+    teng = MappingEngine(idx, mo, device="cpu", stage1_impl="device", **ENGINE_KW)
+    B = ENGINE_KW["batch_size"]
+    packed_sig = np.zeros((B, L + 1), np.float32)
+    packed_ev = np.zeros((B, ne + 2), np.float32)
+    hist_off = np.array([0, 37, 0, 0], np.int32)
+    for i, (_name, sig) in enumerate(reads[:3]):
+        part = sig[i * 1000 : i * 1000 + L]
+        packed_sig[i, : part.size] = part
+        packed_sig[i, L] = part.size
+        evs = gevents.detect_events_fast(part, mo)
+        packed_ev[i, : min(evs.size, ne)] = evs[:ne]
+        packed_ev[i, ne] = min(evs.size, ne)
+        packed_ev[i, ne + 1] = max(evs.size - ne, 0)
+    assert packed_ev[:, ne + 1].any()
+    hmax = mo.max_num_chunk * ne
+    hist_d, hist_h = torch.zeros((B, hmax)), torch.zeros((B, hmax))
+    got = teng._stage1_device(packed_sig, hist_d, hist_off)
+    want = teng._stage1(packed_ev, hist_h, hist_off)
+    assert torch.equal(got, want)
+    assert torch.equal(hist_d, hist_h)
+    teng.close()
+
+
+def test_device_stage1_matches_hybrid_and_golden(setup, golden):
+    """Device events, the native chain DP and round tail."""
+    _ds, idx, reads = setup
+    got, eng = _port(idx, reads, True, stage1_impl="device")
+    assert eng.stage1_impl == "device" and eng.chain_impl == "native"
+    hybrid, heng = _port(idx, reads, True)
+    assert got == hybrid
+    assert eng.counters == heng.counters
+    assert got == golden(True)
 
 
 @pytest.mark.parametrize("use_dtw", [False, True])
@@ -149,9 +251,10 @@ def test_port_never_imports_jax():
         "config.set_opt('viral', io, mo)\n"
         "mo.set_flag(config.MappingFlag.DTW_EVALUATE_CHAINS)\n"
         "idx = dindex.build_index(ds.seqs, ds.model.pore_vals, io)\n"
-        "eng = MappingEngine(idx, mo, device='cpu', batch_size=2)\n"
-        "out = list(eng.map_reads([(ds.reads[0].name, ds.reads[0].signal)]))\n"
-        "assert len(out) == 1\n"
+        "for kw in ({}, dict(stage1_impl='device', chain_impl='device')):\n"
+        "    eng = MappingEngine(idx, mo, device='cpu', batch_size=2, **kw)\n"
+        "    out = list(eng.map_reads([(ds.reads[0].name, ds.reads[0].signal)]))\n"
+        "    assert len(out) == 1 and out[0].mapped\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n"
     )
@@ -185,8 +288,6 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "kw,flag",
     [
-        (dict(chain_impl="device"), None),
-        (dict(stage1_impl="device"), None),
         (dict(stage1_impl="host"), None),
         (dict(fused=True), None),
         ({}, config.MappingFlag.DTW_OUTPUT_CIGAR),
@@ -218,7 +319,33 @@ def test_missing_native_library_raises(setup, monkeypatch):
         MappingEngine(idx, _opts(True), device="cpu")
 
 
-def test_cli_device_cpu_matches_jax_cli(tmp_path):
+@pytest.mark.parametrize("missing,kw", [
+    ("events_available", {}),
+    ("chains_from_dp_available", dict(chain_impl="device")),
+])
+def test_missing_native_piece_raises(setup, monkeypatch, missing, kw):
+    """Each placement checks for the native functions it runs."""
+    _ds, idx, _reads = setup
+    monkeypatch.setattr(native, missing, lambda: False)
+    with pytest.raises(RuntimeError, match="native"):
+        MappingEngine(idx, _opts(True), device="cpu", **kw)
+
+
+def test_auto_modes_resolve(setup, monkeypatch):
+    """"auto" takes the native placements when the library has them and
+    the device ones when it does not, as the JAX engine does."""
+    _ds, idx, _reads = setup
+    kw = dict(device="cpu", stage1_impl="auto", chain_impl="auto")
+    with MappingEngine(idx, _opts(True), **kw) as eng:
+        assert (eng.stage1_impl, eng.chain_impl) == ("hybrid", "native")
+    monkeypatch.setattr(native, "events_available", lambda: False)
+    monkeypatch.setattr(native, "chain_dp_available", lambda: False)
+    with MappingEngine(idx, _opts(True), **kw) as eng:
+        assert (eng.stage1_impl, eng.chain_impl) == ("device", "device")
+
+
+def _cli_against_jax_cli(tmp_path, modes):
+    """The port's CLI with ``modes`` against the JAX CLI's default path."""
     ds = synth.make_dataset(seed=5, genome_lengths=[10_000], n_reads=6,
                             read_len_bp=(250, 600), noise_pa=1.2)
     fasta.write_fasta(str(tmp_path / "ref.fa"), [(s.name, s.seq) for s in ds.seqs])
@@ -231,9 +358,18 @@ def test_cli_device_cpu_matches_jax_cli(tmp_path):
                                str(tmp_path / "ref.fa")]) == 0
     args = [str(tmp_path / "ref.idx.npz"), str(tmp_path / "reads.fast5")]
     assert jcli.main(common + ["-o", str(tmp_path / "jax.paf")] + args) == 0
-    assert tcli.main(common + ["--device", "cpu", "-o",
-                               str(tmp_path / "port.paf")] + args) == 0
+    assert tcli.main(common + modes + ["--device", "cpu", "-o",
+                                       str(tmp_path / "port.paf")] + args) == 0
     want = [_strip_time(ln) for ln in (tmp_path / "jax.paf").read_text().splitlines()]
     got = [_strip_time(ln) for ln in (tmp_path / "port.paf").read_text().splitlines()]
     assert len(got) == len(ds.reads)
     assert sorted(got) == sorted(want)
+
+
+def test_cli_device_cpu_matches_jax_cli(tmp_path):
+    _cli_against_jax_cli(tmp_path, [])
+
+
+def test_cli_all_device_matches_jax_cli(tmp_path):
+    _cli_against_jax_cli(
+        tmp_path, ["--stage1-impl", "device", "--chain-impl", "device"])
