@@ -34,7 +34,23 @@ Phases (each raises on failure; the script then exits non-zero):
    counters are zeroed and a timed pass maps every read. It fails unless
    all four kernels launched in that pass and its 256 PAF lines equal
    the hybrid pass's byte for byte (mt:f stripped), the first 16 also
-   the golden engine's.
+   the golden engine's;
+6. the modes ported last, each in one timed pass of the 256 reads with
+   the launch counters zeroed just before and read just after:
+   a. CIGAR and chain output (``DTW_OUTPUT_CIGAR | OUTPUT_CHAINS``) on
+      the hybrid path, whose rounds end in the Python tail: columns 1-12
+      and every tag but mt/aln/alns/anchors equal phase 4's lines, the
+      first 16 lines equal golden's with the same flags;
+   b. the same flags on the all-device path: the events ride the stage1
+      download and every DTW launch reads the per-round uploaded event
+      pool; all 256 lines equal 6a's;
+   c. the ``faster`` preset (minimizers, w=5 e=7) on a second index of
+      the same genome: the sketch kernel feeding the minimizer filter at
+      B=32, NE=2048 against the CPU result, then a hybrid and an
+      all-device pass whose PAFs must be equal, the first 16 lines also
+      to the same engine at ``device="cpu"`` (plain versions);
+   d. ``stage1_impl="host"`` (host events, sketch and lookup; device
+      DTW): the first 16 lines equal the same engine at ``device="cpu"``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. It never imports JAX.
@@ -427,8 +443,211 @@ def timed_pass(engine, reads, counters, label: str, smi: str):
     return results, launches
 
 
+def score(ds, results) -> tuple[float, float]:
+    """mapped_frac, correct_frac against the simulated truth (as
+    bench.py scores them)."""
+    by_name = {r.name: r for r in ds.reads}
+    n_mapped = n_correct = 0
+    for res in results:
+        if not res.mapped:
+            continue
+        n_mapped += 1
+        r = by_name[res.read_name]
+        if (r.ref_id >= 0 and res.ref_name == ds.seqs[r.ref_id].name
+                and res.rev == r.strand):
+            lo = res.fragment_start_position
+            if not (lo + res.fragment_length < r.ref_start or lo > r.ref_end):
+                n_correct += 1
+    return n_mapped / len(results), n_correct / len(results)
+
+
+def lines_of(results) -> dict[str, str]:
+    from rawalign_tpu.io import paf
+
+    return {res.read_name: strip_time(paf.paf_line(res)) for res in results}
+
+
+def same_lines(label: str, got: dict, want: dict, what: str) -> None:
+    bad = [n for n in want if got.get(n) != want[n]]
+    if bad or len(got) != len(want):
+        n0 = bad[0] if bad else None
+        raise RuntimeError(f"{label}: PAF differs from {what} on {len(bad)} "
+                           f"reads; first {n0}:\n  want {want.get(n0)}\n"
+                           f"  got  {got.get(n0)}")
+
+
+def cpu_reference(idx, mo, reads, label: str, **modes) -> dict[str, str]:
+    """The same engine on the CPU (the plain versions of every kernel) on
+    the first N_GOLDEN reads."""
+    from rawalign_tpu_torch.map.engine import MappingEngine
+
+    t0 = time.perf_counter()
+    with MappingEngine(idx, mo, device="cpu", batch_size=32, pipeline_depth=8,
+                       dtw_device_max_n=256, dtw_device_max_b=256,
+                       **modes) as eng:
+        out = lines_of(eng.map_reads(reads[:N_GOLDEN]))
+    log(f"[{label}] device=\"cpu\" reference on {N_GOLDEN} reads in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_minimizer(ds, mo, io_f, device) -> None:
+    """The sketch kernel feeding the minimizer window filter on the card,
+    against the whole function on the CPU, on the first chunk of 32
+    reads."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu.golden import events as gevents
+    from rawalign_tpu_torch.seeds import sketch
+
+    B, ne = 32, mo.max_events_per_chunk
+    ev = np.zeros((B, ne), np.float32)
+    n_ev = np.zeros(B, np.int32)
+    for i, r in enumerate(ds.reads[:B]):
+        e = gevents.detect_events_fast(r.signal[: mo.chunk_size], mo)[:ne]
+        ev[i, : e.size] = e
+        n_ev[i] = e.size
+    kw = dict(w=io_f.w, e=io_f.e, q=io_f.q, lq=io_f.lq)
+    ev_d = torch.from_numpy(ev).to(device)
+    n_d = torch.from_numpy(n_ev).to(device)
+    ms, got = cuda_ms(lambda: sketch.sketch_events_min_batch(ev_d, n_d, **kw), 20)
+    t0 = time.perf_counter()
+    want = sketch.sketch_events_min_batch(torch.from_numpy(ev),
+                                          torch.from_numpy(n_ev), **kw)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for g, w in zip(got, want):
+        if not torch.equal(g.cpu(), w):
+            raise RuntimeError("minimizer filter on the card disagrees with "
+                               "its CPU result")
+    log(f"[faster] minimizer filter B={B} NE={ne} w={io_f.w} e={io_f.e}: "
+        f"{ms:.4f} ms on the card (sketch kernel + filter), {cpu_ms:.1f} ms "
+        f"on the CPU, equal ({int(got.valid.sum())} of "
+        f"{int((got.hashes != 0).sum())} seeds kept)")
+
+
+def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
+    """Phase 6: CIGAR and chain output on the hybrid and the all-device
+    path, the faster (minimizer) preset on both, the host stage1."""
+    import copy
+
+    from rawalign_tpu import config
+    from rawalign_tpu.config import MappingFlag as F
+    from rawalign_tpu.golden import engine as gengine
+    from rawalign_tpu.index import index as dindex
+    from rawalign_tpu.io import paf
+    from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
+    from rawalign_tpu_torch.map.engine import MappingEngine
+    from rawalign_tpu_torch.seeds import sketch_cuda
+    from rawalign_tpu_torch.signal import events_cuda
+
+    hy_counters = {"sketch_scan": sketch_cuda, "dtw_banded": dtw_cuda}
+    all_counters = {"event_detect": events_cuda, "sketch_scan": sketch_cuda,
+                    "chain_dp": chain_cuda, "dtw_banded": dtw_cuda}
+    out_tags = ("mt", "aln", "alns", "anchors")
+
+    def without_outputs(line: str):
+        cols = line.split("\t")
+        return cols[:12], [t for t in cols[12:] if t.split(":", 1)[0] not in out_tags]
+
+    # ---- 6a: CIGAR and chain output, hybrid stage1, native chain DP,
+    # Python tail
+    mo_a = copy.deepcopy(mo)
+    mo_a.set_flag(F.DTW_OUTPUT_CIGAR | F.OUTPUT_CHAINS)
+    with MappingEngine(idx, mo_a, device=device, batch_size=32,
+                       pipeline_depth=8) as eng:
+        res, _ = timed_pass(eng, reads, hy_counters, "6a cigar hybrid", smi)
+    cigar = lines_of(res)
+    n_aln = sum("\taln:s:" in ln and "\tanchors:s:" in ln for ln in cigar.values())
+    for n, line in hybrid.items():
+        if without_outputs(cigar[n]) != without_outputs(line):
+            raise RuntimeError(f"6a: {n} differs from the phase-4 line outside "
+                               f"the output tags:\n  {line}\n  {cigar[n]}")
+    t0 = time.perf_counter()
+    for r in ds.reads[:N_GOLDEN]:
+        want = strip_time(paf.paf_line(gengine.map_read(idx, r.signal, r.name, mo_a)))
+        if cigar[r.name] != want:
+            raise RuntimeError(f"6a: PAF differs from golden for {r.name}:\n"
+                               f"  golden {want}\n  port   {cigar[r.name]}")
+    log(f"[6a cigar hybrid] {n_aln} mapped lines carry aln/alns/anchors; columns "
+        f"1-12 and the other tags equal phase 4's on all {len(hybrid)}; the "
+        f"first {N_GOLDEN} byte-identical to golden.engine "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 6b: the same flags on the all-device path: the events ride the
+    # stage1 download, the DTW reads the uploaded event pool
+    with MappingEngine(idx, mo_a, device=device, batch_size=32,
+                       pipeline_depth=8, stage1_impl="device",
+                       chain_impl="device") as eng:
+        if not eng._events_on_host:
+            raise RuntimeError("6b: the device stage1 does not keep the events")
+        pool_launches = []
+        submit = eng._dtw_submit
+
+        def count_pool(da, pool, ev_fetch):
+            if pool.dim() != 1:
+                raise RuntimeError("6b: a DTW round read the device history, "
+                                   "not the uploaded event pool")
+            before = dtw_cuda.launches
+            pend = submit(da, pool, ev_fetch)
+            pool_launches.append(dtw_cuda.launches - before)
+            return pend
+
+        eng._dtw_submit = count_pool
+        res, launches = timed_pass(eng, reads, all_counters, "6b cigar device", smi)
+    same_lines("6b", lines_of(res), cigar, "6a")
+    if sum(pool_launches) != launches["dtw_banded"] or not sum(pool_launches):
+        raise RuntimeError(f"6b: {sum(pool_launches)} DTW launches on the pool "
+                           f"of {launches['dtw_banded']}")
+    log(f"[6b cigar device] all {len(cigar)} PAF lines byte-identical to 6a; "
+        f"{sum(pool_launches)} DTW launches in {len(pool_launches)} rounds, "
+        "every one on the uploaded event pool")
+
+    # ---- 6c: the faster preset (minimizers, w=5 e=7) on both paths
+    io_f = config.IndexOptions()
+    mo_c = config.MappingOptions()
+    config.set_opt("faster", io_f, mo_c)
+    mo_c.set_flag(F.DTW_EVALUATE_CHAINS)
+    t0 = time.perf_counter()
+    idx_f = dindex.build_index(ds.seqs, ds.model.pore_vals, io_f)
+    log(f"[faster] index w={io_f.w} e={io_f.e}: {idx_f.keys.size} keys in "
+        f"{time.perf_counter() - t0:.1f} s (sensitive: {idx.keys.size})")
+    check_minimizer(ds, mo_c, io_f, device)
+    with MappingEngine(idx_f, mo_c, device=device, batch_size=32,
+                       pipeline_depth=8) as eng:
+        res, _ = timed_pass(eng, reads, hy_counters, "6c faster hybrid", smi)
+    faster = lines_of(res)
+    mf, cf = score(ds, res)
+    log(f"[6c faster hybrid] mapped_frac {mf:.4f}, correct_frac {cf:.4f}")
+    with MappingEngine(idx_f, mo_c, device=device, batch_size=32,
+                       pipeline_depth=8, stage1_impl="device",
+                       chain_impl="device") as eng:
+        res, _ = timed_pass(eng, reads, all_counters, "6c faster device", smi)
+    same_lines("6c", lines_of(res), faster, "the faster hybrid pass")
+    same_lines("6c", {r.name: faster[r.name] for r in ds.reads[:N_GOLDEN]},
+               cpu_reference(idx_f, mo_c, reads, "6c faster"),
+               "the same engine at device='cpu'")
+    log(f"[6c faster] all {len(faster)} PAF lines byte-identical between the "
+        f"hybrid and the all-device pass, the first {N_GOLDEN} to the "
+        "engine at device='cpu'")
+
+    # ---- 6d: the host stage1 (sensitive + DTW); the device runs the DTW
+    with MappingEngine(idx, mo, device=device, batch_size=32,
+                       pipeline_depth=8, stage1_impl="host") as eng:
+        res, _ = timed_pass(eng, reads, {"dtw_banded": dtw_cuda},
+                            "6d host stage1", smi)
+    host = lines_of(res)
+    same_lines("6d", {r.name: host[r.name] for r in ds.reads[:N_GOLDEN]},
+               cpu_reference(idx, mo, reads, "6d host", stage1_impl="host"),
+               "the same engine at device='cpu'")
+    n_eq = sum(host[n] == hybrid[n] for n in hybrid)
+    log(f"[6d host stage1] the first {N_GOLDEN} PAF lines byte-identical to "
+        f"the engine at device='cpu'; {n_eq} of {len(hybrid)} equal to the "
+        "hybrid pass (the host stage1 does not compact the seeds)")
+
+
 def run(device, name: str, smi: str, t_start: float) -> None:
-    """Phases 4 and 5 on ``device``; prints the two result lines."""
+    """Phases 4 to 6 on ``device``; prints the two result lines."""
     import torch
 
     from rawalign_tpu.golden import engine as gengine
@@ -468,22 +687,10 @@ def run(device, name: str, smi: str, t_start: float) -> None:
         "hybrid", smi)
     engine.close()
 
-    by_name = {r.name: r for r in ds.reads}
-    n_mapped = n_correct = 0
-    for res in results:
-        if not res.mapped:
-            continue
-        n_mapped += 1
-        r = by_name[res.read_name]
-        if (r.ref_id >= 0 and res.ref_name == ds.seqs[r.ref_id].name
-                and res.rev == r.strand):
-            lo = res.fragment_start_position
-            if not (lo + res.fragment_length < r.ref_start or lo > r.ref_end):
-                n_correct += 1
-    log(f"[hybrid] mapped_frac {n_mapped / len(reads):.4f}, correct_frac "
-        f"{n_correct / len(reads):.4f}")
+    mf, cf = score(ds, results)
+    log(f"[hybrid] mapped_frac {mf:.4f}, correct_frac {cf:.4f}")
 
-    hybrid = {res.read_name: strip_time(paf.paf_line(res)) for res in results}
+    hybrid = lines_of(results)
     t0 = time.perf_counter()
     golden = {}
     for r in ds.reads[:N_GOLDEN]:
@@ -525,19 +732,15 @@ def run(device, name: str, smi: str, t_start: float) -> None:
          "chain_dp": chain_cuda, "dtw_banded": dtw_cuda},
         "device", smi)
     engine.close()
-    device_lines = {res.read_name: strip_time(paf.paf_line(res))
-                    for res in results}
-    bad = [n for n in hybrid if device_lines.get(n) != hybrid[n]]
-    if bad or len(device_lines) != len(hybrid):
-        n0 = bad[0] if bad else None
-        raise RuntimeError(
-            f"all-device PAF differs from the hybrid PAF on {len(bad)} reads; "
-            f"first {n0}:\n  hybrid {hybrid.get(n0)}\n  device {device_lines.get(n0)}")
+    device_lines = lines_of(results)
+    same_lines("all-device", device_lines, hybrid, "the hybrid pass")
     for n, want in golden.items():
         if device_lines[n] != want:
             raise RuntimeError(f"all-device PAF differs from golden for {n}")
     log(f"[device] all {len(device_lines)} PAF lines byte-identical to the "
         f"hybrid pass (mt:f stripped), the first {N_GOLDEN} to golden.engine")
+
+    phase6(device, ds, idx, mo, reads, hybrid, smi)
 
     def rec(kname, src, replaces, r):
         return {"name": kname, "route": "cuda",

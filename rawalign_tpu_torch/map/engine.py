@@ -16,17 +16,30 @@ default hybrid path:
     primary chains, MAPQ,
     decisions, carried anchors
 
-Two other placements are ported, each selectable alone:
+The other placements, each selectable alone:
 
 * ``stage1_impl="device"`` uploads the raw chunks and detects the events
   on the device (CUDA event kernel, the golden detector's semantics bit
   for bit, so the events equal the hybrid path's) before the same
   sketch/lookup body.
+* ``stage1_impl="host"`` runs the whole stage1 on the host (native
+  detector, native sketch, ``np.searchsorted`` on the sorted keys, the
+  occurrence cap, no compaction); the round's only device work is the
+  DTW.
 * ``chain_impl="device"`` expands the anchors on the host, runs the
   chaining DP on the device (CUDA chain kernel; one upload, one fetch)
   and finishes the round in Python: traceback, DTW tile descriptors,
   B&B replay, primary chains, MAPQ and the decision, as the JAX engine's
   Python tail does.
+
+Minimizer indexes (``index.opt.w > 0``, e.g. the ``faster`` preset) seed
+through the same sketch scan followed by the minimizer window filter.
+The flags whose output needs host events or Python chains at emit
+(``PYTHON_TAIL_FLAGS``: CIGAR, chain output, the three logs) finish every
+round in the Python tail, after the native chain DP too. CIGAR needs each
+read's events on the host: the hybrid and host stage1 have them, the
+device stage1 then carries them in its download, and the DTW reads a
+per-round uploaded pool of them instead of the device history.
 
 ``pipeline_depth`` groups advance round-robin as generators that yield
 at every device wait, so one group's host work overlaps another group's
@@ -34,10 +47,9 @@ device work. Slots are position-stable and refilled as reads finish
 (continuous batching).
 
 ``"auto"`` picks the native placement when the native library has it, as
-the JAX engine does. ``stage1_impl="host"``, ``fused=True``, minimizer
-presets and the flags that need the Python chain structure at emit
-(CIGAR, chain output, logs) raise ``NotImplementedError``; a native
-library without what the chosen placements need raises ``RuntimeError``.
+the JAX engine does. ``fused=True`` raises ``NotImplementedError``; a
+native library without what the chosen placements need raises
+``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -66,7 +78,8 @@ from rawalign_tpu_torch.map import chain, stage1_codec, tiles
 from rawalign_tpu_torch.seeds import sketch
 from rawalign_tpu_torch.signal import events
 
-#: flags whose output needs host events or chain structure at emit
+#: flags whose output needs host events or chain structure at emit: they
+#: take the Python round tail instead of the native round finalize
 PYTHON_TAIL_FLAGS = (
     MappingFlag.DTW_OUTPUT_CIGAR
     | MappingFlag.OUTPUT_CHAINS
@@ -74,12 +87,33 @@ PYTHON_TAIL_FLAGS = (
     | MappingFlag.LOG_ANCHORS
     | MappingFlag.LOG_NUM_ANCHORS
 )
+LOG_FLAGS = MappingFlag.LOG_ANCHORS | MappingFlag.LOG_NUM_ANCHORS
+
+#: ``ra_expand_round`` (native/rawalign_host.cpp:736-767) packs each
+#: anchor's input position within its read, the stable sort's tie-break,
+#: into 24 bits of the sort key: positions 0 .. 2**24 - 1
+EXPAND_MAX_ANCHORS = 1 << 24
+
+
+def check_expand_bound(need: np.ndarray, live: np.ndarray) -> None:
+    """Raise before an anchor expansion whose 24-bit tie-break would wrap:
+    ``need`` (B,) is each read's pre-drop anchor count (its seed hits
+    after the occurrence cap plus its carried anchors), ``live`` the
+    reads the round expands. Beyond ``EXPAND_MAX_ANCHORS`` the native
+    expansion would corrupt qpos and the sort order without an error."""
+    if live.any() and int(need[live].max()) > EXPAND_MAX_ANCHORS:
+        i = int(np.flatnonzero(live)[np.argmax(need[live])])
+        raise RuntimeError(
+            f"read slot {i} expands {int(need[i])} anchors in one round; the "
+            f"native anchor expansion takes at most {EXPAND_MAX_ANCHORS} "
+            "(lower max_occ)"
+        )
 
 
 class _ReadState:
     __slots__ = (
-        "name", "signal", "qlen", "chunk_ptr", "chunks_done", "offset",
-        "ev_total", "chains", "carried", "fin", "done", "map_time",
+        "name", "signal", "qlen", "chunk_ptr", "chunks_done", "events",
+        "offset", "ev_total", "chains", "carried", "fin", "done", "map_time",
     )
 
     def __init__(self, name: str, signal: np.ndarray):
@@ -88,6 +122,9 @@ class _ReadState:
         self.qlen = self.signal.size
         self.chunk_ptr = 0
         self.chunks_done = 0
+        # every event of the read, on the host; kept only when the host
+        # has them anyway or CIGAR output needs them (see _events_on_host)
+        self.events = np.zeros(0, dtype=np.float32)
         # events of chunks that passed the min_events gate
         self.offset = 0
         # all events ever detected = write offset into the history row
@@ -144,19 +181,8 @@ class MappingEngine:
             raise ValueError(
                 f"stage1_impl must be auto|hybrid|device|host: {stage1_impl}"
             )
-        if stage1_impl == "host":
-            raise NotImplementedError("stage1_impl='host' is not ported")
         if fused:
             raise NotImplementedError("fused stage1+chain is not ported")
-        if index.opt.w:
-            raise NotImplementedError(
-                "minimizer seeding (w > 0) is not ported"
-            )
-        if opt.flag & PYTHON_TAIL_FLAGS:
-            raise NotImplementedError(
-                "CIGAR output, chain output and the log flags need host "
-                "events or chain structure at emit, which is not ported"
-            )
         if mt_mode not in ("share", "wall"):
             raise ValueError(f"mt_mode must be share|wall: {mt_mode}")
         if chain_impl == "auto":
@@ -167,15 +193,29 @@ class MappingEngine:
             )
         if stage1_impl == "auto":
             stage1_impl = "hybrid" if native.events_available() else "device"
+        # CIGAR output reads each read's events on the host at emit: the
+        # hybrid and host stage1 detect them there, the device stage1
+        # then ships them in its download and the DTW reads a per-round
+        # uploaded pool of them (the JAX engine's _events_on_host)
+        self._events_on_host = (
+            bool(opt.flag & MappingFlag.DTW_OUTPUT_CIGAR)
+            or stage1_impl == "host"
+        ) and stage1_impl != "hybrid"
+        # rounds end in the Python tail (per-read chains, B&B replay in
+        # Python) instead of the native round finalize
+        self._python_tail = (
+            bool(opt.flag & PYTHON_TAIL_FLAGS) or self._events_on_host
+        )
         # anchor expansion, oversized DTW tiles and the traceback run in
         # the native library on every path
         need = {"its core": native.available()}
-        if stage1_impl == "hybrid":
+        if stage1_impl in ("hybrid", "host"):
             need["events"] = native.events_available()
         if chain_impl == "native":
             need["chain DP"] = native.chain_dp_available()
-            need["round tail"] = native.round_tail_available()
-        else:
+            if not self._python_tail:
+                need["round tail"] = native.round_tail_available()
+        if chain_impl == "device" or self._python_tail:
             need["traceback"] = native.chains_from_dp_available()
         missing = [k for k, ok in need.items() if not ok]
         if missing:
@@ -297,7 +337,7 @@ class MappingEngine:
                        hist_off: np.ndarray) -> torch.Tensor:
         """Device stage1: ``packed_sig`` (B, chunk_size+1) holds each
         slot's raw chunk | its length; the events are detected on the
-        device."""
+        device, and lead the packed output when the host keeps them."""
         opt = self.opt
         L = opt.chunk_size
         x = runtime.put(packed_sig, self.device)
@@ -311,22 +351,29 @@ class MappingEngine:
             max_events=opt.max_events_per_chunk,
         )
         return self._stage1_post(ev.values, ev.n_events, ev.n_dropped, hist,
-                                 hist_off)
+                                 hist_off, with_events=self._events_on_host)
 
     def _stage1_post(self, ev_values: torch.Tensor, ev_n: torch.Tensor,
                      ev_nd: torch.Tensor, hist: torch.Tensor,
-                     hist_off: np.ndarray) -> torch.Tensor:
+                     hist_off: np.ndarray, *,
+                     with_events: bool = False) -> torch.Tensor:
         """Sketch, seed compaction, lookup and history append on one
         round's events (B, ne). Appends the events to ``hist`` in place —
         the JAX engine donates this buffer to its jitted stage and gets a
         new one back; here it is simply updated. Returns the packed
-        stage1 output (B, 2*ns + 4)."""
+        stage1 output (B, [ne +] 2*ns + 4), the events first if
+        ``with_events``."""
         io = self.index.opt
         dev = self.device
         ne = self.opt.max_events_per_chunk
-        seeds = sketch.sketch_events_batch(
-            ev_values, ev_n, e=io.e, q=io.q, lq=io.lq
-        )
+        if io.w:
+            seeds = sketch.sketch_events_min_batch(
+                ev_values, ev_n, w=io.w, e=io.e, q=io.q, lq=io.lq
+            )
+        else:
+            seeds = sketch.sketch_events_batch(
+                ev_values, ev_n, e=io.e, q=io.q, lq=io.lq
+            )
         # seed compaction before the lookup: a stable sort of the
         # invalid flag keeps valid seeds first, in original order, so
         # the host expansion sees anchors in the uncompacted order
@@ -359,7 +406,9 @@ class MappingEngine:
             [ev_n, ev_nd, n_occ_dropped, n_compact_dropped.to(torch.int32)],
             dim=1,
         )
-        return stage1_codec.pack_stage1(lo_c, qc_c, scalars)
+        return stage1_codec.pack_stage1(
+            lo_c, qc_c, scalars, ev_values if with_events else None
+        )
 
     # ------------------------------------------------------------------
     def map_reads(
@@ -449,39 +498,49 @@ class MappingEngine:
             elif st.chains:
                 carried_lists[i] = _carried_from_chains(st.chains)
 
-        if self.stage1_impl == "device":
-            stage1 = self._stage1_device
-            packed_in = np.zeros((B, L + 1), dtype=np.float32)
-            for i, part in live:
-                packed_in[i, : part.size] = part
-                packed_in[i, L] = part.size
+        if self.stage1_impl == "host":
+            # no device round trip: the round's only device work is DTW
+            mark("build_inputs")
+            s1 = self._stage1_host_round(slots)
         else:
-            stage1 = self._stage1
-            packed_in = np.zeros((B, ne + 2), dtype=np.float32)
+            if self.stage1_impl == "device":
+                stage1 = self._stage1_device
+                packed_in = np.zeros((B, L + 1), dtype=np.float32)
+                for i, part in live:
+                    packed_in[i, : part.size] = part
+                    packed_in[i, L] = part.size
+            else:
+                stage1 = self._stage1
+                packed_in = np.zeros((B, ne + 2), dtype=np.float32)
 
-            def detect(item):
-                # native C detector (revent.c semantics); rows are disjoint
-                i, part = item
-                evs = (gevents.detect_events_fast(part, opt) if part.size
-                       else np.zeros(0, np.float32))
-                dropped = max(evs.size - ne, 0)
-                evs = evs[:ne]
-                packed_in[i, : evs.size] = evs
-                packed_in[i, ne] = evs.size
-                packed_in[i, ne + 1] = dropped
+                def detect(item):
+                    # native C detector (revent.c semantics); rows and
+                    # read states are disjoint
+                    i, part = item
+                    evs = (gevents.detect_events_fast(part, opt) if part.size
+                           else np.zeros(0, np.float32))
+                    dropped = max(evs.size - ne, 0)
+                    evs = evs[:ne]
+                    if evs.size:
+                        st = slots[i]
+                        st.events = np.concatenate([st.events, evs])
+                    packed_in[i, : evs.size] = evs
+                    packed_in[i, ne] = evs.size
+                    packed_in[i, ne + 1] = dropped
 
-            list(self._pool.map(detect, live))
-        mark("build_inputs")
+                list(self._pool.map(detect, live))
+            mark("build_inputs")
 
-        hist = self._group_hist.get(g)
-        if hist is None:
-            hist = torch.zeros((B, self._hmax), device=self.device)
-            self._group_hist[g] = hist
-        pending = runtime.fetch_async(stage1(packed_in, hist, hist_off))
-        yield  # other groups' host work overlaps this device work
-        s1 = stage1_codec.unpack_stage1(
-            pending.result(), ne=ne, ns=self._ns_out, events_on_host=False
-        )
+            hist = self._group_hist.get(g)
+            if hist is None:
+                hist = torch.zeros((B, self._hmax), device=self.device)
+                self._group_hist[g] = hist
+            pending = runtime.fetch_async(stage1(packed_in, hist, hist_off))
+            yield  # other groups' host work overlaps this device work
+            s1 = stage1_codec.unpack_stage1(
+                pending.result(), ne=ne, ns=self._ns_out,
+                events_on_host=self._events_on_host,
+            )
         ev_counts = s1.n_events
         mark("stage_chain")
         self.counters["events_dropped"] += int(s1.n_ev_dropped.sum())
@@ -494,20 +553,84 @@ class MappingEngine:
             if st is None:
                 chain_this_round[i] = False
                 continue
-            st.ev_total += int(ev_counts[i])
+            n_ev = int(ev_counts[i])
+            st.ev_total += n_ev
+            if n_ev and s1.ev_values is not None:
+                st.events = np.concatenate([st.events, s1.ev_values[i, :n_ev]])
         yield from self._round_tail(
-            slots, g, carried_lists, chain_this_round, s1.lo, s1.qpos,
-            s1.count, ev_counts, mark, charge_round,
+            slots, g, carried_lists, chain_this_round, s1, mark, charge_round,
         )
 
     # ------------------------------------------------------------------
-    def _round_tail(self, slots, g, carried_lists, chain_this_round,
-                    h_lo, h_qpos, h_count, ev_counts, mark, charge_round):
-        """Anchor expansion -> chain DP -> traceback, DTW and decisions:
-        in host C on the worker pool (native chain), or with the chain DP
-        on the device and a Python tail (device chain)."""
+    def _stage1_host_round(self, slots) -> stage1_codec.Stage1Host:
+        """Host stage1 of one round (the JAX engine's _stage1_host_round):
+        the native detector, the native sketch (minimizers when
+        ``index.opt.w``), ``np.searchsorted`` on the sorted key table and
+        the occurrence cap, with no compaction (NS = ne). The events are
+        appended to each read's host array."""
+        opt = self.opt
+        io = self.index.opt
+        B = self.batch_size
+        ne = opt.max_events_per_chunk
+        L = opt.chunk_size
+        keys = self.index.keys
+        lo = np.zeros((B, ne), np.int32)
+        qpos = np.zeros((B, ne), np.int32)
+        count = np.zeros((B, ne), np.int32)
+        n_events = np.zeros(B, np.int64)
+        n_ev_dropped = np.zeros(B, np.int64)
+        n_occ_dropped = np.zeros(B, np.int64)
+
+        def one(item):
+            # rows and read states are disjoint
+            i, st = item
+            part = st.signal[st.chunk_ptr : st.chunk_ptr + L]
+            if part.size == 0:
+                return
+            evs = gevents.detect_events_fast(part, opt)
+            if evs.size > ne:
+                n_ev_dropped[i] = evs.size - ne
+                evs = evs[:ne]
+            n_events[i] = evs.size
+            if evs.size:
+                st.events = np.concatenate([st.events, evs])
+            if evs.size < io.e:
+                return
+            if io.w:
+                h, p = native.sketch_min(evs, io.w, io.e, io.q, io.lq)
+            else:
+                h, p = native.sketch_reg(evs, io.e, io.q, io.lq)
+            if h.size == 0:
+                return
+            h_lo = np.searchsorted(keys, h, side="left")
+            cnt = (np.searchsorted(keys, h, side="right") - h_lo).astype(np.int64)
+            over = cnt > self.max_occ
+            n_occ_dropped[i] = int(cnt[over].sum())
+            cnt[over] = 0
+            m = h.size
+            lo[i, :m] = h_lo
+            qpos[i, :m] = p
+            count[i, :m] = cnt
+
+        live = [(i, st) for i, st in enumerate(slots) if st is not None]
+        list(self._pool.map(one, live))
+        return stage1_codec.Stage1Host(
+            ev_values=None, lo=lo, qpos=qpos, count=count, n_events=n_events,
+            n_ev_dropped=n_ev_dropped, n_occ_dropped=n_occ_dropped,
+            n_compact_dropped=np.zeros(B, np.int64),
+        )
+
+    # ------------------------------------------------------------------
+    def _round_tail(self, slots, g, carried_lists, chain_this_round, s1,
+                    mark, charge_round):
+        """Anchor expansion -> chain DP -> traceback, DTW and decisions
+        on one round's stage1 output ``s1``: in host C on the worker pool
+        (native chain and round tail), or ending in the Python tail
+        (device chain, or a flag in ``PYTHON_TAIL_FLAGS``)."""
         opt = self.opt
         B = self.batch_size
+        h_count = s1.count
+        ev_counts = s1.n_events
         if not chain_this_round.any():
             for st in slots:
                 if st is not None:
@@ -523,6 +646,7 @@ class MappingEngine:
         need = h_count.sum(axis=1, dtype=np.int64)
         for i, cl in carried_lists.items():
             need[i] += cl[0].size
+        check_expand_bound(need, chain_this_round)
         nmax = int(need[chain_this_round].max())
         if nmax > A:
             A = 1 << int(np.ceil(np.log2(nmax)))
@@ -535,22 +659,101 @@ class MappingEngine:
         for i, st in enumerate(slots):
             if st is not None:
                 read_offsets[i] = st.offset
-        use_dtw = bool(opt.flag & MappingFlag.DTW_EVALUATE_CHAINS)
+        # DTW tiles run for evaluation or for the score log; chains are
+        # replaced by the B&B survivors only under evaluation
+        use_dtw = bool(opt.flag & (MappingFlag.DTW_EVALUATE_CHAINS
+                                   | MappingFlag.DTW_LOG_SCORES))
         io = self.index.opt
 
         def expand():
             # hits and carried anchors into the (B, A) blocks; returns
             # (max_used, max_true, dropped)
             return manchors.expand_round(
-                h_lo, h_qpos, h_count, chain_this_round, read_offsets,
+                s1.lo, s1.qpos, h_count, chain_this_round, read_offsets,
                 carried_lists, self._h_val_id, self._h_val_ps, A,
                 seg_b, tgt_b, qry_b, n_anch,
             )
 
-        if self.chain_impl == "device":
-            max_used, _max_true, dropped = expand()
-            self.counters["anchors_dropped"] += dropped
+        def chain_dp_native():
+            return native.chain_dp(
+                seg_b, tgt_b, qry_b, n_anch,
+                window=self.chain_window,
+                e=io.e,
+                max_gap=opt.max_gap_length,
+                max_target_gap=opt.max_target_gap_length,
+                max_skips=opt.max_num_skips,
+            )
+
+        def chains_of_round(scores, preds) -> dict[int, list[gchain.Chain]]:
+            # the traceback of every chained read, sorted by chaining
+            # score when DTW runs
+            per_read = {}
+            for i in np.nonzero(chain_this_round)[0]:
+                chains = postprocess.chains_from_dp_fast(
+                    seg_b[i], tgt_b[i], qry_b[i], scores[i], preds[i],
+                    int(n_anch[i]), opt,
+                )
+                if use_dtw:
+                    chains.sort(key=lambda c: c.chaining_score, reverse=True)
+                per_read[int(i)] = chains
+            return per_read
+
+        if self.chain_impl == "native" and not opt.flag & LOG_FLAGS:
+            # the whole host tail on the worker pool; the anchor logs
+            # stay on this thread to keep their order, as in the JAX engine
+            def work():
+                _, _, dropped = expand()
+                scores, preds = chain_dp_native()
+                if self._python_tail:
+                    return dropped, None, chains_of_round(scores, preds)
+                rec = native.round_chains(
+                    seg_b, tgt_b, qry_b, scores, preds, n_anch,
+                    chain_this_round.astype(np.uint8), A,
+                    min_chaining_score=opt.min_chaining_score,
+                    num_best_chains=opt.num_best_chains,
+                    min_num_anchors=opt.min_num_anchors,
+                    disable_filter=bool(
+                        opt.flag & MappingFlag.DISABLE_CHAININGSCORE_FILTERING
+                    ),
+                    sort_for_dtw=use_dtw,
+                    use_dtw=use_dtw,
+                    border_global=(
+                        opt.dtw_border_constraint == BorderConstraint.GLOBAL
+                    ),
+                    fill_full=opt.dtw_fill_method == FillMethod.FULL,
+                    band_frac=opt.dtw_band_radius_frac,
+                    segbase=self._segbase_tbl,
+                    ev_base=self._evbase_arr,
+                )
+                return dropped, rec, None
+
+            tail_fut = self._pool.submit(work)
             mark("host_anchors")
+            yield
+            dropped, rec, per_read_chains = tail_fut.result()
+            self.counters["anchors_dropped"] += dropped
+            mark("chain_dp")
+            if rec is not None:
+                yield from self._round_tail_post_native(
+                    slots, g, rec, chain_this_round, ev_counts, use_dtw, mark,
+                    charge_round,
+                )
+            else:
+                yield from self._round_tail_post(
+                    slots, g, per_read_chains, chain_this_round, ev_counts,
+                    use_dtw, mark, charge_round,
+                )
+            return
+
+        max_used, _max_true, dropped = expand()
+        self.counters["anchors_dropped"] += dropped
+        if opt.flag & LOG_FLAGS:
+            self._log_anchors(slots, chain_this_round, seg_b, tgt_b, qry_b,
+                              n_anch, s1)
+        mark("host_anchors")
+        if self.chain_impl == "native":
+            scores, preds = chain_dp_native()
+        else:
             # the anchor axis bucketed to powers of two from 256
             a = 256
             while a < max_used:
@@ -566,63 +769,37 @@ class MappingEngine:
             dp = pending.result()
             scores = dp[:, :a]
             preds = dp.view(np.int32)[:, a:]
-            mark("chain_dp")
-            per_read_chains: dict[int, list[gchain.Chain]] = {}
-            for i in np.nonzero(chain_this_round)[0]:
-                chains = postprocess.chains_from_dp_fast(
-                    seg_b[i], tgt_b[i], qry_b[i], scores[i], preds[i],
-                    int(n_anch[i]), opt,
-                )
-                if use_dtw:
-                    chains.sort(key=lambda c: c.chaining_score, reverse=True)
-                per_read_chains[int(i)] = chains
-            yield from self._round_tail_post(
-                slots, g, per_read_chains, chain_this_round, ev_counts,
-                use_dtw, mark, charge_round,
-            )
-            return
-
-        def work():
-            _, _, dropped = expand()
-            scores, preds = native.chain_dp(
-                seg_b, tgt_b, qry_b, n_anch,
-                window=self.chain_window,
-                e=io.e,
-                max_gap=opt.max_gap_length,
-                max_target_gap=opt.max_target_gap_length,
-                max_skips=opt.max_num_skips,
-            )
-            rec = native.round_chains(
-                seg_b, tgt_b, qry_b, scores, preds, n_anch,
-                chain_this_round.astype(np.uint8), A,
-                min_chaining_score=opt.min_chaining_score,
-                num_best_chains=opt.num_best_chains,
-                min_num_anchors=opt.min_num_anchors,
-                disable_filter=bool(
-                    opt.flag & MappingFlag.DISABLE_CHAININGSCORE_FILTERING
-                ),
-                sort_for_dtw=use_dtw,
-                use_dtw=use_dtw,
-                border_global=(
-                    opt.dtw_border_constraint == BorderConstraint.GLOBAL
-                ),
-                fill_full=opt.dtw_fill_method == FillMethod.FULL,
-                band_frac=opt.dtw_band_radius_frac,
-                segbase=self._segbase_tbl,
-                ev_base=self._evbase_arr,
-            )
-            return dropped, rec
-
-        tail_fut = self._pool.submit(work)
-        mark("host_anchors")
-        yield
-        dropped, rec = tail_fut.result()
-        self.counters["anchors_dropped"] += dropped
         mark("chain_dp")
-        yield from self._round_tail_post_native(
-            slots, g, rec, chain_this_round, ev_counts, use_dtw, mark,
-            charge_round,
+        yield from self._round_tail_post(
+            slots, g, chains_of_round(scores, preds), chain_this_round,
+            ev_counts, use_dtw, mark, charge_round,
         )
+
+    def _log_anchors(self, slots, chain_this_round, seg_b, tgt_b, qry_b,
+                     n_anch, s1) -> None:
+        """--log-anchors and --log-num-anchors for every chained read of
+        the round (rmap.cpp:403-425), as the JAX engine prints them."""
+        opt = self.opt
+        for i, st in enumerate(slots):
+            if not chain_this_round[i]:
+                continue
+            if opt.flag & MappingFlag.LOG_ANCHORS:
+                m = int(n_anch[i])
+                by_key: dict[tuple[int, int], list[tuple[int, int]]] = {}
+                for s, t, q in zip(seg_b[i, :m].tolist(), tgt_b[i, :m].tolist(),
+                                   qry_b[i, :m].tolist()):
+                    by_key.setdefault((s & 1, s >> 1), []).append((t, q))
+                gchain.log_anchors(by_key, st.name, self.index.seq_names,
+                                   self.index.n_seq)
+            if opt.flag & MappingFlag.LOG_NUM_ANCHORS:
+                # every seed hit, with those the occurrence cap and the
+                # compaction dropped (the reference counts before
+                # appending, rmap.cpp:381)
+                gchain.log_num_anchors(
+                    st.name, st.offset, int(s1.n_events[i]),
+                    int(s1.count[i].sum()) + int(s1.n_occ_dropped[i])
+                    + int(s1.n_compact_dropped[i]),
+                )
 
     def _chain_dp(self, packed: np.ndarray, a: int) -> torch.Tensor:
         """Device chain DP on ``packed`` (B, 3a+1) int32: seg | target |
@@ -647,17 +824,29 @@ class MappingEngine:
     def _round_tail_post(self, slots, g, per_read_chains, chain_this_round,
                          ev_counts, use_dtw, mark, charge_round):
         """The Python round tail: DTW tiles of every chain -> B&B replay
-        -> primary chains and MAPQ -> decisions."""
+        -> primary chains and MAPQ -> decisions. The tiles read the
+        group's device event history, or, when the events live on the
+        host, this round's uploaded pool of the chained reads' events."""
         opt = self.opt
         descs: list[np.ndarray] = []
         # each (read, chain)'s [start, end) run of tiles
         runs: dict[tuple[int, int], tuple[int, int]] = {}
         n_tiles = 0
+        ev_parts: list[np.ndarray] = []
+        ev_off = 0
         if use_dtw:
             lref = self._ref_cat_host.size
             for i, chains in per_read_chains.items():
-                # tiles index this slot's device event-history row
-                ev_base = lref + i * self._hmax
+                if not chains:
+                    continue
+                if self._events_on_host:
+                    # the read's whole event array, appended to the pool
+                    ev_base = lref + ev_off
+                    ev_parts.append(slots[i].events)
+                    ev_off += slots[i].events.size
+                else:
+                    # this slot's device event-history row
+                    ev_base = lref + i * self._hmax
                 for ci, ch in enumerate(chains):
                     rows = postprocess.build_chain_tile_descs_vec(
                         ch, self._sig_base[(ch.strand, ch.reference_sequence_index)],
@@ -670,9 +859,16 @@ class MappingEngine:
         mark("traceback")
         if descs:
             da = np.concatenate(descs)
-            pending = self._dtw_submit(
-                da, self._group_hist[g], self._make_ev_fetch(g)
-            )
+            if self._events_on_host:
+                pool = np.concatenate(ev_parts)
+                pending = self._dtw_submit(
+                    da, runtime.put(pool, self.device),
+                    lambda idx, ln: pool[idx : idx + ln],
+                )
+            else:
+                pending = self._dtw_submit(
+                    da, self._group_hist[g], self._make_ev_fetch(g)
+                )
             mark("dtw_prep")
             yield
             costs = tiles.dtw_collect(pending)
@@ -682,12 +878,15 @@ class MappingEngine:
                 da[:, 1] * np.minimum(2 * da[:, 4] + 1, da[:, 3])
             ))
             empty = np.zeros(0, dtype=np.float32)
+            replace = bool(opt.flag & MappingFlag.DTW_EVALUATE_CHAINS)
             for i, chains in per_read_chains.items():
                 part_costs = [
                     costs[r[0] : r[1]] if (r := runs.get((i, ci))) else empty
                     for ci in range(len(chains))
                 ]
-                per_read_chains[i] = postprocess.bnb_replay(chains, part_costs, opt)
+                post = postprocess.bnb_replay(chains, part_costs, opt)
+                if replace:
+                    per_read_chains[i] = post
         for i, st in enumerate(slots):
             if st is None:
                 continue
@@ -778,13 +977,15 @@ class MappingEngine:
         charge_round()
 
     # ------------------------------------------------------------------
-    def _dtw_submit(self, da: np.ndarray, hist: torch.Tensor, ev_fetch):
+    def _dtw_submit(self, da: np.ndarray, ev_dev: torch.Tensor, ev_fetch):
         """Dispatch one round's DTW tile descriptors (rows a_base, a_len,
-        b_base, b_len, radius, exclude_last)."""
+        b_base, b_len, radius, exclude_last) against the event operand
+        ``ev_dev``: a group's (B, hmax) history or a round's 1-D uploaded
+        event pool, read on the host through ``ev_fetch``."""
         pend = tiles.dtw_submit_indexed(
             *(da[:, k].astype(np.int32) for k in range(6)),
             self._ref_cat_dev,
-            hist,
+            ev_dev,
             self._ref_cat_host,
             device_max_n=self.dtw_device_max_n,
             device_max_b=self.dtw_device_max_b,
@@ -876,13 +1077,20 @@ class MappingEngine:
     def _emit_chains(self, st: _ReadState, ci: int, scale,
                      mapping_time_ms: float) -> paf.MappingResult:
         """Emit from the read's Python chains (rmap.cpp:700-802); also the
-        form of a read that never chained (no chains, unmapped)."""
+        form of a read that never chained (no chains, unmapped). A mapped
+        read gets the event-to-base alignment (``alns``/``aln``, golden's
+        traceback on its host events) under CIGAR output and its best
+        chain's anchors under chain output."""
+        opt = self.opt
         chains = st.chains
         n_anchors0 = chains[0].n_anchors if chains else 0
         mean_score = paf.mean_score_f32([c.chaining_score for c in chains])
         if self._decision(st):
             self.counters["reads_mapped"] += 1
             c0 = chains[0]
+            cigar = bool(opt.flag & MappingFlag.DTW_OUTPUT_CIGAR)
+            if cigar:
+                gchain.align_chain(c0, self.index, st.events, opt, cigar=True)
             # f32 left-fold of per-pair deltas + f32 division, exactly
             # the reference's accumulation (rmap.cpp:719-729)
             at, aq = paf.anchor_gap_means_f32(c0.anchors)
@@ -898,6 +1106,13 @@ class MappingEngine:
                 at=at,
                 aq=aq,
                 mapped_with_chains=True,
+                alns=c0.alignment_score if cigar else None,
+                aln=gengine._dtwresult_to_string(c0.dtw) if cigar else None,
+                anchors=(
+                    gengine._anchors_to_string(c0.anchors)
+                    if opt.flag & MappingFlag.OUTPUT_CHAINS
+                    else None
+                ),
             )
             ref_len = int(self.index.seq_lens[c0.reference_sequence_index])
             frag_start = (

@@ -153,9 +153,10 @@ def dtw_submit_indexed(
 ) -> PendingDtw:
     """Dispatch one round's tiles; collect with :func:`dtw_collect`.
 
-    Bases index ``[ref | hist.ravel()]``. ``ev_fetch(idx, ln)`` returns
-    ``ln`` history values at flat index ``idx`` on the host (for the
-    oversized tiles the native library runs)."""
+    Bases index ``[ref | hist.ravel()]``, where ``hist_dev`` is the event
+    history (B, hmax) or a 1-D uploaded event pool. ``ev_fetch(idx, ln)``
+    returns ``ln`` of its values at flat index ``idx`` on the host (for
+    the oversized tiles the native library runs)."""
     N = a_base.size
     small = (a_len <= device_max_n) & (b_len <= device_max_b)
     small_idx, descs, batches = class_batches(

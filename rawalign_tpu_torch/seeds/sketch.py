@@ -12,6 +12,10 @@ in int64 on values kept in ``[0, 2**32)``: every shift and add is masked
 with ``& 0xFFFFFFFF``, which wraps exactly as uint32 does. Hashes leave
 this module as int64 tensors holding those uint32 values.
 
+Minimizer seeds (``w > 0``, :func:`sketch_events_min_batch`) run the
+same scan and then the minimizer window filter, in the JAX package's set
+semantics.
+
 :func:`_sketch_scan` is the plain PyTorch version of the sequential scan
 (the JAX package's ``lax.scan``); ``seeds/sketch_cuda.py`` holds the CUDA
 kernel and the wrapper that picks between the two by the tensor's
@@ -127,3 +131,43 @@ def sketch_events_batch(events: torch.Tensor, n_events: torch.Tensor, *,
         events, n_events, e=e, q=q, lq=lq
     )
     return SeedBatch(hashes=hashes, qpos=newest, valid=emit)
+
+
+def sketch_events_min_batch(events: torch.Tensor, n_events: torch.Tensor, *,
+                            w: int, e: int, q: int, lq: int) -> SeedBatch:
+    """Minimizer-window sketching with the JAX package's set semantics
+    (its ``sketch_events_min_batch``; ri_sketch_min, rsketch.c:146-221):
+    a seed is kept iff its hash equals the minimum of at least one window
+    of ``w`` consecutive seeds covering it. Its position is the OLDEST
+    event of its ``e``-window (min-mode's buffer, rsketch.c:184-190).
+
+    The scan is the same as plain mode's (CUDA kernel or plain scan by
+    the tensor's device); the window filter after it is a few vector
+    passes of width NE on the same device. The JAX scatter-min is
+    ``scatter_reduce_(..., "amin")`` on int64 holding uint32, with
+    ``0xFFFFFFFF`` as the empty-slot sentinel."""
+    from rawalign_tpu_torch.seeds import sketch_cuda
+
+    hashes, emit, _newest, oldest, cnt = sketch_cuda.sketch_scan(
+        events, n_events, e=e, q=q, lq=lq
+    )
+    B, NE = hashes.shape
+    big = torch.full((B, NE), M32, dtype=torch.int64, device=hashes.device)
+    h = torch.where(emit, hashes, big)
+    # compact the seeds by emission rank, so that "w consecutive seeds"
+    # is a contiguous window of columns
+    rank = torch.where(emit, cnt.to(torch.int64) - e, 0)
+    comp = big.clone().scatter_reduce_(
+        1, torch.where(emit, rank, NE - 1), h, "amin"
+    )
+    # wmin[r] = min over compact ranks r-w+1 .. r
+    wmin = comp
+    for d in range(1, w):
+        wmin = torch.minimum(wmin, torch.cat([big[:, :d], comp[:, :-d]], dim=1))
+    # the seed at rank r is a minimizer iff comp[r] == wmin[r'] for some
+    # r' in r .. r+w-1
+    is_min = torch.zeros((B, NE), dtype=torch.bool, device=hashes.device)
+    for d in range(w):
+        is_min |= comp == torch.cat([wmin[:, d:], big[:, :d]], dim=1)
+    picked = emit & (is_min & (comp != M32)).gather(1, rank)
+    return SeedBatch(hashes=hashes, qpos=oldest.to(torch.int64), valid=picked)

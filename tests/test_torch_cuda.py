@@ -9,7 +9,9 @@ Comparisons are exact (torch.equal, or NaN-for-NaN equality where a
 chunk's z-norm divides by a zero deviation): kernel and plain version do
 the same integer, float32 and float64 operations in the same order, and
 the kernels are built with --fmad=false. The event and chain kernels
-are also held to the native C detector and chaining DP.
+are also held to the native C detector and chaining DP. The minimizer
+filter and the DTW family (plain PyTorch on the card) are held to their
+CPU results, and the engine to golden on three paths.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import torch
 
 from rawalign_tpu import config, native
 from rawalign_tpu.golden import events as gevents
-from rawalign_tpu_torch.map import chain, chain_cuda, dtw, dtw_cuda, tiles
+from rawalign_tpu_torch.map import chain, chain_cuda, dtw, dtw_cuda, dtw_family, tiles
 from rawalign_tpu_torch.seeds import sketch, sketch_cuda
 from rawalign_tpu_torch.signal import events, events_cuda
 
@@ -204,7 +206,47 @@ def test_chain_kernel_matches_plain_and_native(dev, window, B, A):
     assert (npred != np.arange(A)).any()
 
 
-def _engine_matches_golden(dev, **modes):
+@pytest.mark.parametrize("w", [1, 5])
+def test_minimizer_filter_on_the_card_matches_cpu(dev, w):
+    """The sketch kernel feeding the minimizer window filter on the card,
+    against the whole function on the CPU (plain scan and filter)."""
+    rng = np.random.default_rng(w)
+    B, NE = 32, 2048
+    ev = rng.normal(0.0, 1.0, (B, NE)).astype(np.float32)
+    ev[rng.random((B, NE)) < 0.02] = np.float32(3.402823466e32)
+    n_ev = rng.integers(0, NE + 1, B).astype(np.int32)
+    n_ev[:3] = [0, 6, NE]
+    kw = dict(w=w, e=7, q=9, lq=3)
+    before = sketch_cuda.launches
+    got = sketch.sketch_events_min_batch(
+        torch.from_numpy(ev).to(dev), torch.from_numpy(n_ev).to(dev), **kw)
+    want = sketch.sketch_events_min_batch(
+        torch.from_numpy(ev), torch.from_numpy(n_ev), **kw)
+    torch.cuda.synchronize()
+    assert sketch_cuda.launches == before + 1
+    for g, c in zip(got, want):
+        assert torch.equal(g.cpu(), c)
+    assert int(got.valid.sum()) > 0
+
+
+@pytest.mark.parametrize("semiglobal", [False, True])
+@pytest.mark.parametrize("radius", [None, 5])
+def test_dtw_family_on_the_card_matches_cpu(dev, semiglobal, radius):
+    rng = np.random.default_rng(7)
+    B, N, M = 16, 120, 90
+    a = rng.normal(0, 1, (B, N)).astype(np.float32)
+    b = rng.normal(0, 1, (B, M)).astype(np.float32)
+    na = rng.integers(1, N + 1, B).astype(np.int32)
+    nb = rng.integers(1, M + 1, B).astype(np.int32)
+    kw = dict(semiglobal=semiglobal, radius=radius, exclude_last=True)
+    args = [torch.from_numpy(x) for x in (a, b, na, nb)]
+    got = dtw_family.dtw_batch(*(x.to(dev) for x in args), **kw)
+    want = dtw_family.dtw_batch(*args, **kw)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+def _engine_matches_golden(dev, flags=config.MappingFlag.NONE, **modes):
     import re
 
     from rawalign_tpu.golden import engine as gengine
@@ -217,7 +259,7 @@ def _engine_matches_golden(dev, **modes):
                             n_reads=10, read_len_bp=(250, 700), noise_pa=1.3)
     io, mo = config.IndexOptions(), config.MappingOptions()
     config.set_opt("viral", io, mo)
-    mo.set_flag(config.MappingFlag.DTW_EVALUATE_CHAINS)
+    mo.set_flag(config.MappingFlag.DTW_EVALUATE_CHAINS | flags)
     idx = dindex.build_index(ds.seqs, ds.model.pore_vals, io)
     eng = MappingEngine(idx, mo, device=dev, batch_size=4, chain_window=2048,
                         max_occ=256, **modes)
@@ -240,3 +282,13 @@ def test_all_device_engine_on_the_card_matches_golden(dev):
     _engine_matches_golden(dev, stage1_impl="device", chain_impl="device")
     assert events_cuda.launches > launched[0]
     assert chain_cuda.launches > launched[1]
+
+
+def test_cigar_engine_on_the_card_matches_golden(dev):
+    """CIGAR and chain output on the all-device path: the events ride the
+    stage1 download and the DTW kernel reads the uploaded event pool."""
+    launched = dtw_cuda.launches
+    _engine_matches_golden(
+        dev, config.MappingFlag.DTW_OUTPUT_CIGAR | config.MappingFlag.OUTPUT_CHAINS,
+        stage1_impl="device", chain_impl="device")
+    assert dtw_cuda.launches > launched

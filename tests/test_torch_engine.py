@@ -285,31 +285,11 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
             build.load(name)
 
 
-@pytest.mark.parametrize(
-    "kw,flag",
-    [
-        (dict(stage1_impl="host"), None),
-        (dict(fused=True), None),
-        ({}, config.MappingFlag.DTW_OUTPUT_CIGAR),
-        ({}, config.MappingFlag.LOG_ANCHORS),
-    ],
-)
-def test_unported_modes_raise(setup, kw, flag):
+def test_unported_modes_raise(setup):
+    """Only the fused stage1+chain is left unported."""
     _ds, idx, _reads = setup
-    mo = _opts(True)
-    if flag is not None:
-        mo.set_flag(flag)
     with pytest.raises(NotImplementedError):
-        MappingEngine(idx, mo, device="cpu", **kw)
-
-
-def test_minimizer_preset_raises(setup):
-    ds, _idx, _reads = setup
-    io, mo = config.IndexOptions(), config.MappingOptions()
-    config.set_opt("faster", io, mo)
-    idx = dindex.build_index(ds.seqs[:1], ds.model.pore_vals, io)
-    with pytest.raises(NotImplementedError, match="minimizer"):
-        MappingEngine(idx, mo, device="cpu")
+        MappingEngine(idx, _opts(True), device="cpu", fused=True)
 
 
 def test_missing_native_library_raises(setup, monkeypatch):
@@ -344,26 +324,30 @@ def test_auto_modes_resolve(setup, monkeypatch):
         assert (eng.stage1_impl, eng.chain_impl) == ("device", "device")
 
 
-def _cli_against_jax_cli(tmp_path, modes):
-    """The port's CLI with ``modes`` against the JAX CLI's default path."""
+def _cli_against_jax_cli(tmp_path, modes, preset="viral", jax_modes=()):
+    """The port's CLI with ``modes`` against the JAX CLI with
+    ``jax_modes`` (its default path if none), on an index built with
+    ``preset``."""
     ds = synth.make_dataset(seed=5, genome_lengths=[10_000], n_reads=6,
                             read_len_bp=(250, 600), noise_pa=1.2)
     fasta.write_fasta(str(tmp_path / "ref.fa"), [(s.name, s.seq) for s in ds.seqs])
     save_pore_model(str(tmp_path / "model.txt"), ds.model)
     fast5.write_fast5(str(tmp_path / "reads.fast5"),
                       [(r.name, r.signal) for r in ds.reads])
-    common = ["-x", "viral", "--dtw-evaluate-chains", "-t", "1"]
+    common = ["-x", preset, "--dtw-evaluate-chains", "-t", "1"]
     assert jcli.main(common + ["-p", str(tmp_path / "model.txt"),
                                "-d", str(tmp_path / "ref.idx.npz"),
                                str(tmp_path / "ref.fa")]) == 0
     args = [str(tmp_path / "ref.idx.npz"), str(tmp_path / "reads.fast5")]
-    assert jcli.main(common + ["-o", str(tmp_path / "jax.paf")] + args) == 0
+    assert jcli.main(common + list(jax_modes) + ["-o", str(tmp_path / "jax.paf")]
+                     + args) == 0
     assert tcli.main(common + modes + ["--device", "cpu", "-o",
                                        str(tmp_path / "port.paf")] + args) == 0
     want = [_strip_time(ln) for ln in (tmp_path / "jax.paf").read_text().splitlines()]
     got = [_strip_time(ln) for ln in (tmp_path / "port.paf").read_text().splitlines()]
     assert len(got) == len(ds.reads)
     assert sorted(got) == sorted(want)
+    return got
 
 
 def test_cli_device_cpu_matches_jax_cli(tmp_path):

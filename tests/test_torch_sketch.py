@@ -102,3 +102,33 @@ def test_cpu_scan_launches_no_kernel():
         torch.from_numpy(ev), torch.zeros(2, dtype=torch.int32), e=6, q=9, lq=3
     )
     assert sketch_cuda.launches == before
+
+
+@pytest.mark.parametrize("w", [1, 3, 5])
+@pytest.mark.parametrize("e", [5, 7])
+def test_sketch_events_min_batch_matches_jax(w, e):
+    """The minimizer window filter: hashes, positions (the oldest event of
+    each seed's window) and the kept set, on rows with masked-signal
+    events, runs of similar events, an empty row, a row shorter than
+    ``e`` and a full row."""
+    rng = np.random.default_rng(10 * w + e)
+    B, NE = 6, 128
+    ev = _events(rng, B, NE)
+    n_ev = np.array([0, e - 1, NE, NE // 2, e + 2, NE - 3], dtype=np.int32)
+    want = jsketch.sketch_events_min_batch(
+        jnp.asarray(ev), jnp.asarray(n_ev), w=w, e=e, q=9, lq=3
+    )
+    got = tsketch.sketch_events_min_batch(
+        torch.from_numpy(ev), torch.from_numpy(n_ev), w=w, e=e, q=9, lq=3
+    )
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(
+        got.hashes.numpy(), np.asarray(want.hashes).astype(np.int64)
+    )
+    np.testing.assert_array_equal(got.qpos.numpy(), np.asarray(want.qpos))
+    emitted = int((got.hashes != 0).sum())
+    kept = int(got.valid.sum())
+    assert 0 < kept <= emitted
+    if w > 1:
+        assert kept < emitted
+    assert not got.valid[:2].any()  # nothing kept from fewer than e events
