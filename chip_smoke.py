@@ -29,9 +29,11 @@ Phases (each raises on failure; the script then exits non-zero):
    first chain round is kept), then the event kernel checked on the
    first chunk of 32 reads (B=32, L=4000) against its plain version on
    the card and the native detector, the chain kernel on the kept round
-   against its plain version and ``native.chain_dp``, and on a synthetic
-   round of 16384 anchors (W=64) against ``native.chain_dp``; then the
-   counters are zeroed and a timed pass maps every read. It fails unless
+   and on two synthetic rounds of 16384 anchors (W=64, segments sorted;
+   W=2048, segments interleaved) against both plain versions (the plain
+   DP on the card, the warp-form scan on the host CPU) and
+   ``native.chain_dp``; then the counters are zeroed and a timed pass
+   maps every read. It fails unless
    all four kernels launched in that pass and its 256 PAF lines equal
    the hybrid pass's byte for byte (mt:f stripped), the first 16 also
    the golden engine's;
@@ -52,8 +54,13 @@ Phases (each raises on failure; the script then exits non-zero):
    d. ``stage1_impl="host"`` (host events, sketch and lookup; device
       DTW): the first 16 lines equal the same engine at ``device="cpu"``.
 
+Every kernel's record carries its time, its plain version's, and its
+bound: the larger of its bytes at the card's memory rate and the
+operations this run's data needs at its scalar rate (see ``bound``).
 The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``. It never imports JAX.
+``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
+package: the golden engine, options, index build and native bindings are
+the port's own copies.
 """
 
 from __future__ import annotations
@@ -72,6 +79,26 @@ N_READS = 256
 N_GOLDEN = 16
 N_SYNTH = 512  # synthetic DTW tiles, read side up to SYNTH_MAX_LEN events
 SYNTH_MAX_LEN = 2048
+
+# Each kernel's bound is the larger of two times on an H100 at its
+# published peaks (NVIDIA's data sheet, SXM part): its inputs read once
+# and outputs written once at HBM_BPS, and the operations its algorithm
+# needs on this run's data at OPS_PER_S, the card's scalar float32 rate
+# outside the tensor cores (the integer work of these kernels runs on the
+# same lanes). Operations are counted per element from the algorithms:
+HBM_BPS = 3.35e12
+OPS_PER_S = 67e12
+#: per raw sample: two prefix sums, two windowed t-statistics, the peak
+#: test and the event mean
+EVENT_OPS = 40
+#: per event: quantization, packing of e events and the 32-bit hash
+SKETCH_OPS = 30
+#: per predecessor slot the serial chaining loop visits: three compares,
+#: two subtractions, two minima, the gap and its scale (one division),
+#: three gates, the add, the best test and the skip count
+CHAIN_OPS = 20
+#: per DTW cell in the band: |a - b|, two minima, one add
+DTW_OPS = 5
 
 
 def log(msg: str) -> None:
@@ -95,7 +122,7 @@ def card() -> tuple[str, str]:
 
 PROBE = (
     "import numpy as np\n"
-    "from rawalign_tpu import native\n"
+    "from rawalign_tpu_torch import native\n"
     "assert native.available() and native.events_available()\n"
     "assert native.chain_dp_available() and native.round_tail_available()\n"
     "z = np.zeros((1, 4), np.int32)\n"
@@ -137,6 +164,26 @@ def build_kernels() -> None:
                 log(f"[build]   {line.strip()}")
 
 
+def bound(nbytes: int, nops: int) -> tuple[float, str]:
+    """(milliseconds, "bytes" or "operations"): the least time the card
+    could take to move ``nbytes`` and do ``nops``, and which one sets it."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, nops / OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors among ``xs`` (tuples are walked)."""
+    import torch
+
+    total = 0
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, tuple):
+            total += nbytes(*x)
+    return total
+
+
 def cuda_ms(fn, reps: int) -> tuple[float, object]:
     """Median milliseconds of ``fn()`` over ``reps`` runs after one warm
     run, each run bracketed by torch.cuda.synchronize(); with ``reps``
@@ -156,9 +203,9 @@ def cuda_ms(fn, reps: int) -> tuple[float, object]:
 
 
 def dataset():
-    from rawalign_tpu import config
-    from rawalign_tpu.index import index as dindex
-    from rawalign_tpu.testing import synth
+    from rawalign_tpu_torch import config
+    from rawalign_tpu_torch.index import index as dindex
+    from rawalign_tpu_torch.testing import synth
 
     t0 = time.perf_counter()
     ds = synth.make_dataset(seed=7, genome_lengths=[GENOME_LEN],
@@ -179,7 +226,7 @@ def check_sketch(ds, mo, io, device, reps: int = 20) -> dict:
     import numpy as np
     import torch
 
-    from rawalign_tpu.golden import events as gevents
+    from rawalign_tpu_torch.golden import events as gevents
     from rawalign_tpu_torch.seeds import sketch, sketch_cuda
 
     B, ne = 32, mo.max_events_per_chunk
@@ -198,9 +245,12 @@ def check_sketch(ds, mo, io, device, reps: int = 20) -> dict:
         if not torch.equal(g, w):
             raise RuntimeError("sketch_scan kernel disagrees with the plain scan")
     err = float((got[0] - want[0]).abs().max())
+    bms, by = bound(nbytes(ev_d, n_d, got), SKETCH_OPS * int(n_ev.sum()))
     log(f"[sketch] B={B} NE={ne} e={io.e}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bit-identical ({int(got[1].sum())} seeds)")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        f"{plain_ms:.2f} ms, bit-identical ({int(got[1].sum())} seeds); "
+        f"bound {bms:.6f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bms,
+                bound_by=by)
 
 
 def _dtw_round(ref, hist, da, device_max_n, reps):
@@ -233,18 +283,23 @@ def _dtw_round(ref, hist, da, device_max_n, reps):
         raise RuntimeError(f"DTW kernel disagrees with the plain version on "
                            f"{bad} of {got.numel()} tiles")
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    return ms, plain_ms, err, order, got, batches
+    # the bound: both sequences of every tile, its descriptor and its cost;
+    # DTW_OPS per cell of the band (the engine's dtw_cells count)
+    rows = da[order]
+    moved = 4 * int(rows[:, 1].sum() + rows[:, 3].sum()) + nbytes(descs_d, got)
+    cells = int((rows[:, 1] * np.minimum(2 * rows[:, 4] + 1, rows[:, 3])).sum())
+    return ms, plain_ms, err, order, got, batches, bound(moved, DTW_OPS * cells)
 
 
 def check_dtw(engine, captured, device, reps: int = 10) -> dict:
     import numpy as np
     import torch
 
-    from rawalign_tpu import native
+    from rawalign_tpu_torch import native
 
     da, hist = captured
     ref = engine._ref_cat_dev
-    ms, plain_ms, err, order, got, batches = _dtw_round(
+    ms, plain_ms, err, order, got, batches, (bms, by) = _dtw_round(
         ref, hist, da, engine.dtw_device_max_n, reps
     )
     # the same tiles through the native host library: bit-identical too
@@ -258,7 +313,8 @@ def check_dtw(engine, captured, device, reps: int = 10) -> dict:
     log(f"[dtw] first round: {order.size} tiles in {len(batches)} classes "
         f"(max_n {max(c.max_n for c in batches)}, dpw "
         f"{sorted({c.dpw for c in batches})}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bit-identical to plain and native")
+        f"{plain_ms:.2f} ms, bit-identical to plain and native; bound "
+        f"{bms:.6f} ms ({by})")
 
     # synthetic mix through every size class up to 2048
     rng = np.random.default_rng(1)
@@ -278,7 +334,8 @@ def check_dtw(engine, captured, device, reps: int = 10) -> dict:
     syn = _dtw_round(syn_ref, syn_hist, np.asarray(rows, np.int64), 2048, 3)
     log(f"[dtw] synthetic mix: {N_SYNTH} tiles up to {SYNTH_MAX_LEN} in {len(syn[5])} classes: "
         f"kernel {syn[0]:.4f} ms, plain {syn[1]:.2f} ms, bit-identical")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(err, syn[2]))
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(err, syn[2]),
+                bound_ms=bms, bound_by=by)
 
 
 def _same(a, b) -> bool:
@@ -293,7 +350,7 @@ def check_events(ds, mo, device, reps: int = 20) -> dict:
     import numpy as np
     import torch
 
-    from rawalign_tpu import native
+    from rawalign_tpu_torch import native
     from rawalign_tpu_torch.signal import events, events_cuda
 
     B, L, ne = 32, mo.chunk_size, mo.max_events_per_chunk
@@ -325,38 +382,86 @@ def check_events(ds, mo, device, reps: int = 20) -> dict:
                                f"on read {i}")
     diff = (got.values - want.values).abs()
     err = float(torch.where(diff.isnan(), 0.0, diff).max())
+    bms, by = bound(nbytes(sig_d, lens_d, got), EVENT_OPS * int(lens.sum()))
     log(f"[events] B={B} L={L}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-        f"bit-identical to plain and native ({int(got.n_events.sum())} events)")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        f"bit-identical to plain and native ({int(got.n_events.sum())} "
+        f"events); bound {bms:.6f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bms,
+                bound_by=by)
 
 
-def _chain_vs(packed, a, device, window, kw, reps, plain: bool):
-    """Chain kernel on one packed round (B, 3a+1): timed, held to
-    native.chain_dp and, if ``plain``, to the plain version on the card."""
+def _chain_vs(packed, a, device, window, kw, reps: int, label: str) -> dict:
+    """Chain kernel on one packed round (B, 3a+1): timed, and held bit for
+    bit to both plain versions and to ``native.chain_dp``. The plain DP
+    runs on the card; the warp-form scan runs on the host CPU (the same
+    arithmetic; on the card each of its per-chunk steps is a dozen
+    launches) and counts the predecessor slots the serial loop visits."""
     import numpy as np
     import torch
 
-    from rawalign_tpu import native
+    from rawalign_tpu_torch import native
     from rawalign_tpu_torch.map import chain, chain_cuda
 
     seg, tgt, qry = (np.ascontiguousarray(packed[:, k * a : (k + 1) * a])
                      for k in range(3))
     n = np.ascontiguousarray(packed[:, 3 * a])
-    d = [torch.from_numpy(x).to(device) for x in (seg, tgt, qry, n)]
-    ms, got = cuda_ms(lambda: chain_cuda.chain_dp(*d, window=window, **kw), reps)
-    plain_ms, err = None, 0.0
-    if plain:
-        plain_ms, want = cuda_ms(
-            lambda: chain.chain_dp_plain(*d, window=window, **kw), 0)
-        if not (torch.equal(got.scores, want.scores)
-                and torch.equal(got.preds, want.preds)):
-            raise RuntimeError("chain kernel disagrees with the plain version")
-        err = float((got.scores - want.scores).abs().max())
-    ns, npred = native.chain_dp(seg, tgt, qry, n, window=window, **kw)
+    host = [torch.from_numpy(x) for x in (seg, tgt, qry, n)]
+    d = [x.to(device) for x in host]
+    kw = dict(window=window, **kw)
+    ms, got = cuda_ms(lambda: chain_cuda.chain_dp(*d, **kw), reps)
+    plain_ms, want = cuda_ms(lambda: chain.chain_dp_plain(*d, **kw), 0)
+    visited = torch.zeros(n.size, dtype=torch.int64)
+    t0 = time.perf_counter()
+    scan = chain.chain_dp_scan_plain(*host, visited=visited, **kw)
+    scan_s = time.perf_counter() - t0
+    for what, ref in (("chain_dp_plain", want), ("chain_dp_scan_plain", scan)):
+        if not (torch.equal(got.scores.cpu(), ref.scores.cpu())
+                and torch.equal(got.preds.cpu(), ref.preds.cpu())):
+            raise RuntimeError(f"chain kernel disagrees with {what} ({label})")
+    ns, npred = native.chain_dp(seg, tgt, qry, n, **kw)
     if not (np.array_equal(got.scores.cpu().numpy(), ns)
             and np.array_equal(got.preds.cpu().numpy(), npred)):
-        raise RuntimeError("chain kernel disagrees with native.chain_dp")
-    return ms, plain_ms, err, int(n.max())
+        raise RuntimeError(f"chain kernel disagrees with native.chain_dp ({label})")
+    B = n.size
+    # the bound: three int32 inputs and n_anchors read, scores and preds
+    # written; CHAIN_OPS operations per predecessor slot the serial loop
+    # visits on this data
+    nbytes = 4 * (3 * B * a + B + 2 * B * a)
+    slots = int(visited.sum())
+    bound_ms, bound_by = bound(nbytes, CHAIN_OPS * slots)
+    nmax = int(n.max())
+    log(f"[chain] {label}: B={B} A={a} (max {nmax} anchors) W={window}: kernel "
+        f"{ms:.4f} ms ({ms * 1e3 / max(nmax, 1):.4f} us per anchor of the "
+        f"widest read), plain {plain_ms:.2f} ms on the card, scan "
+        f"{scan_s:.1f} s on the CPU; {slots} slots visited, bound "
+        f"{bound_ms:.6f} ms ({bound_by}); bit-identical to both plain "
+        "versions and native")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=float(
+        (got.scores - want.scores).abs().max()), bound_ms=bound_ms,
+        bound_by=bound_by, widest=nmax)
+
+
+def _chain_round(rng, B, A, n_seg, t_span, interleave: bool):
+    """A synthetic packed round (B, 3A+1): co-linear runs of 100 anchors
+    among random ones; rows sorted by (segment, target, query), or, with
+    ``interleave``, by (target, query) alone so that the segments
+    alternate inside every window and most slots are inert."""
+    import numpy as np
+
+    out = np.zeros((B, 3 * A + 1), np.int32)
+    for b in range(B):
+        s = np.sort(rng.integers(0, n_seg, A))
+        t = rng.integers(0, t_span, A)
+        q = rng.integers(0, 20_000, A)
+        for k in rng.integers(0, A - 100, 64):
+            run = np.arange(100)
+            s[k : k + 100] = s[k]
+            t[k : k + 100] = t[k] + run * 10
+            q[k : k + 100] = q[k] + run * 9
+        o = np.lexsort((q, t) if interleave else (q, t, s))
+        out[b, :A], out[b, A : 2 * A], out[b, 2 * A : 3 * A] = s[o], t[o], q[o]
+        out[b, 3 * A] = A
+    return out
 
 
 def check_chain(engine, captured, device, reps: int = 10) -> dict:
@@ -366,32 +471,17 @@ def check_chain(engine, captured, device, reps: int = 10) -> dict:
     kw = dict(e=engine.index.opt.e, max_gap=opt.max_gap_length,
               max_target_gap=opt.max_target_gap_length,
               max_skips=opt.max_num_skips)
-    W = engine.chain_window
     packed, a = captured
-    ms, plain_ms, err, nmax = _chain_vs(packed, a, device, W, kw, reps, True)
-    log(f"[chain] captured round: B={packed.shape[0]} A={a} (max {nmax} "
-        f"anchors) W={W}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-        f"bit-identical to plain and native")
-    # a wide synthetic round: sorted rows with co-linear runs
+    rec = _chain_vs(packed, a, device, engine.chain_window, kw, reps,
+                    "captured round")
     rng = np.random.default_rng(2)
-    B, A = 32, 16384
-    wide = np.zeros((B, 3 * A + 1), np.int32)
-    for b in range(B):
-        s = np.sort(rng.integers(0, 8, A))
-        t = rng.integers(0, 5_000_000, A)
-        q = rng.integers(0, 20_000, A)
-        for k in rng.integers(0, A - 100, 64):
-            run = np.arange(100)
-            s[k : k + 100] = s[k]
-            t[k : k + 100] = t[k] + run * 10
-            q[k : k + 100] = q[k] + run * 9
-        o = np.lexsort((q, t, s))
-        wide[b, :A], wide[b, A : 2 * A], wide[b, 2 * A : 3 * A] = s[o], t[o], q[o]
-        wide[b, 3 * A] = A
-    wms, _, _, _ = _chain_vs(wide, A, device, 64, kw, 3, False)
-    log(f"[chain] synthetic round: B={B} A={A} W=64: kernel {wms:.4f} ms, "
-        f"bit-identical to native")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, wide_ms=wms)
+    A = 16384
+    wide = _chain_round(rng, 32, A, 8, 5_000_000, False)
+    rec["wide_ms"] = _chain_vs(wide, A, device, 64, kw, 3, "synthetic round")["ms"]
+    dense = _chain_round(rng, 32, A, 8, 400_000, True)
+    rec["w2048_ms"] = _chain_vs(dense, A, device, 2048, kw, 3,
+                                "synthetic round, interleaved")["ms"]
+    return rec
 
 
 def strip_time(line: str) -> str:
@@ -462,7 +552,7 @@ def score(ds, results) -> tuple[float, float]:
 
 
 def lines_of(results) -> dict[str, str]:
-    from rawalign_tpu.io import paf
+    from rawalign_tpu_torch.io import paf
 
     return {res.read_name: strip_time(paf.paf_line(res)) for res in results}
 
@@ -498,7 +588,7 @@ def check_minimizer(ds, mo, io_f, device) -> None:
     import numpy as np
     import torch
 
-    from rawalign_tpu.golden import events as gevents
+    from rawalign_tpu_torch.golden import events as gevents
     from rawalign_tpu_torch.seeds import sketch
 
     B, ne = 32, mo.max_events_per_chunk
@@ -531,11 +621,11 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
     path, the faster (minimizer) preset on both, the host stage1."""
     import copy
 
-    from rawalign_tpu import config
-    from rawalign_tpu.config import MappingFlag as F
-    from rawalign_tpu.golden import engine as gengine
-    from rawalign_tpu.index import index as dindex
-    from rawalign_tpu.io import paf
+    from rawalign_tpu_torch import config
+    from rawalign_tpu_torch.config import MappingFlag as F
+    from rawalign_tpu_torch.golden import engine as gengine
+    from rawalign_tpu_torch.index import index as dindex
+    from rawalign_tpu_torch.io import paf
     from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
     from rawalign_tpu_torch.map.engine import MappingEngine
     from rawalign_tpu_torch.seeds import sketch_cuda
@@ -650,8 +740,8 @@ def run(device, name: str, smi: str, t_start: float) -> None:
     """Phases 4 to 6 on ``device``; prints the two result lines."""
     import torch
 
-    from rawalign_tpu.golden import engine as gengine
-    from rawalign_tpu.io import paf
+    from rawalign_tpu_torch.golden import engine as gengine
+    from rawalign_tpu_torch.io import paf
     from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
     from rawalign_tpu_torch.map.engine import MappingEngine
     from rawalign_tpu_torch.seeds import sketch_cuda
@@ -747,7 +837,10 @@ def run(device, name: str, smi: str, t_start: float) -> None:
                 "source": f"rawalign_tpu_torch/csrc/{src}",
                 "replaces": replaces, "launches": launches[kname],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"]}
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                # no single PyTorch call computes any of the four
+                "library_ms": None}
 
     kernels = [
         rec("event_detect", "event_detect.cu",

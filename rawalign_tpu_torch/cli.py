@@ -2,33 +2,235 @@
 
     python -m rawalign_tpu_torch.cli [options] <target.fa|target.idx.npz> [query ...]
 
-The option surface is ``rawalign_tpu.cli``'s (its parser and option
-handling are reused) plus ``--device`` (default ``cuda``). Indexing runs
-exactly as in the JAX CLI (numpy and the native host library); mapping
-runs the port's engine. ``--profile`` and ``--debug-nans`` are JAX
-tools and are refused.
+``build_parser``, ``parse_num`` and ``apply_options`` are copies of
+rawalign_tpu/cli.py's: the same options with the same help, plus
+``--device`` (default ``cuda``). Indexing runs as in the JAX CLI (numpy
+and the native host library); mapping runs the port's engine.
+``--profile`` and ``--debug-nans`` are JAX tools and are refused.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
-from rawalign_tpu import cli as jcli
-from rawalign_tpu.config import MappingFlag
-from rawalign_tpu.index import index as dindex
-from rawalign_tpu.io import fast5, fasta, paf
-from rawalign_tpu.pore_model import load_pore_model
-from rawalign_tpu.until import SequenceUntil
-from rawalign_tpu_torch import __version__
+from rawalign_tpu_torch import __version__, config
+from rawalign_tpu_torch.config import BorderConstraint, FillMethod, MappingFlag
+from rawalign_tpu_torch.index import index as dindex
+from rawalign_tpu_torch.io import fast5, fasta, paf
+from rawalign_tpu_torch.pore_model import load_pore_model
+from rawalign_tpu_torch.until import SequenceUntil
 
 
-def build_parser():
-    p = jcli.build_parser()
-    p.prog = "rawalign-tpu-torch"
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="rawalign-tpu-torch",
+        description="TPU-native raw nanopore signal mapper "
+        "(Seed-Filter-Align with banded DTW)",
+    )
+    p.add_argument("target", nargs="?", help="reference FASTA or prebuilt index (.npz)")
+    p.add_argument("query", nargs="*", help="FAST5/sigbin files or directories")
+    p.add_argument("-d", dest="dump", help="dump index to FILE")
+    p.add_argument("-p", dest="pore", help="k-mer pore model FILE")
+    p.add_argument("-k", type=int, help="pore model k-mer size")
+    p.add_argument("-e", type=int, help="events per hash value")
+    p.add_argument("-q", type=int, help="significant signal bits")
+    p.add_argument("-l", dest="lq", type=int, help="low bits of q to quantize")
+    p.add_argument("-w", type=int, help="minimizer window (0=off)")
+    p.add_argument("-n", type=int, help="BLEND neighbors (unsupported, parity)")
+    p.add_argument("-t", dest="threads", type=int, default=3, help="host worker threads")
+    p.add_argument("-K", dest="minibatch", default=None, help="mapping mini-batch size")
+    p.add_argument("-x", dest="preset", help="preset: sensitive|fast|faster|viral|sequence-until")
+    p.add_argument("-o", dest="output", default="-", help="output PAF file")
+    p.add_argument("--version", action="version", version=__version__)
+    # chaining
+    p.add_argument("--min-events", type=int)
+    p.add_argument("--max-gap", type=int)
+    p.add_argument("--max-target-gap", type=int)
+    p.add_argument("--max-chains", type=int, help="chaining band length")
+    p.add_argument("--min-anchors", type=int)
+    p.add_argument("--best-chains", type=int)
+    p.add_argument("--min-score", type=float)
+    # mapping
+    p.add_argument("--max-chunks", type=int)
+    p.add_argument("--stop-min-anchor", type=int)
+    p.add_argument("--map-min-anchor", type=int)
+    p.add_argument("--stop-best-ratio", type=float)
+    p.add_argument("--map-best-ratio", type=float)
+    p.add_argument("--stop-mean-ratio", type=float)
+    p.add_argument("--map-mean-ratio", type=float)
+    p.add_argument("--bp-per-sec", type=int)
+    p.add_argument("--sample-rate", type=int)
+    p.add_argument("--chunk-size", type=int)
+    # DTW
+    p.add_argument("--dtw-evaluate-chains", action="store_true")
+    p.add_argument("--dtw-output-cigar", action="store_true")
+    p.add_argument("--dtw-border-constraint", choices=["global", "sparse", "local"])
+    p.add_argument("--dtw-log-scores", action="store_true")
+    p.add_argument("--no-chainingscore-filtering", action="store_true")
+    p.add_argument("--dtw-match-bonus", type=float)
+    p.add_argument("--dtw-fill-method", help="'banded', 'full' or 'banded=FRAC'")
+    p.add_argument("--dtw-min-score", type=float)
+    p.add_argument("--output-chains", action="store_true")
+    p.add_argument("--log-anchors", action="store_true")
+    p.add_argument("--log-num-anchors", action="store_true")
+    # sequence until
+    p.add_argument("--sequence-until", action="store_true")
+    p.add_argument("--threshold", type=float)
+    p.add_argument("--n-samples", type=int)
+    p.add_argument("--test-frequency", type=int)
+    p.add_argument("--min-reads", type=int)
+    # TPU engine knobs
+    p.add_argument("--batch-size", type=int, default=32, help="reads per device batch")
+    p.add_argument("--max-occ", type=int, default=4096,
+                   help="per-seed hit-count safety cap (the reference "
+                   "gathers every hit, rmap.cpp:371-391; the default "
+                   "never binds at evaluated genome scales)")
+    p.add_argument("--chain-window", type=int, default=64, help="chaining DP predecessor window")
+    p.add_argument("--max-anchors", type=int, default=2048,
+                   help="per-read anchor budget for DEVICE chain paths; "
+                   "the native (default) chain path sizes its arrays "
+                   "dynamically and only decimates beyond the 128k "
+                   "ceiling — lossless at evaluated scales")
+    p.add_argument("--seeds-out", type=int, default=768,
+                   help="compacted seed slots per chunk (device stage output)")
+    p.add_argument("--pipeline-depth", type=int, default=4,
+                   help="read groups advancing round-robin (overlaps host and device work)")
+    p.add_argument("--engine", choices=["device", "golden"], default="device",
+                   help="'golden' runs the NumPy reference-replica engine")
+    p.add_argument("--chain-impl", choices=["auto", "native", "device"],
+                   default="auto",
+                   help="chaining DP placement: host C (native) or the "
+                   "device kernel; auto prefers native when the host "
+                   "library is built")
+    p.add_argument("--stage1-impl",
+                   choices=["auto", "device", "host", "hybrid"],
+                   default="auto",
+                   help="events+sketch+lookup placement: 'hybrid' "
+                   "(host-C event detector — bit-identical to the "
+                   "reference's C-double semantics — + device sketch/"
+                   "lookup; the default when the native lib is built), "
+                   "'device' (everything in one jitted dispatch, "
+                   "f32 event detector), 'host' (C events + C sketch + "
+                   "binary-search lookup; one device round trip per "
+                   "round). 'auto' = hybrid if available else device")
+    # observability / fault tolerance (SURVEY §5: the reference has none;
+    # these are framework additions)
+    p.add_argument("--resume", action="store_true",
+                   help="skip reads already present in the -o PAF and append")
+    p.add_argument("--profile", metavar="DIR",
+                   help="capture a jax.profiler device trace into DIR")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="enable jax debug_nans (slow; for debugging)")
+    p.add_argument("--selfcheck", type=float, default=0.0, metavar="FRAC",
+                   help="sanitizer analog: re-map a deterministic FRAC "
+                   "sample of reads with the golden host oracle and "
+                   "report any mapping-column divergence (0=off). "
+                   "Capture stops after --selfcheck-max-reads eligible "
+                   "reads (stream order)")
+    p.add_argument("--selfcheck-max-reads", type=int, default=64,
+                   metavar="N",
+                   help="cap on reads captured for --selfcheck (bounds "
+                   "the golden re-map cost; raise for full audits)")
+    p.add_argument("--mt-mode", choices=["share", "wall"], default="share",
+                   help="mt:f tag semantics for the batched engine: "
+                   "'share' = amortized per-read share of each round's "
+                   "wall (batching-fair aggregate metric), 'wall' = "
+                   "strict reference semantics — each read's wall clock "
+                   "across its live rounds (rmap.cpp:684-694; directly "
+                   "comparable to the binary's mt:f, double-counts "
+                   "shared batch cost)")
+    p.add_argument("--selfcheck-strict", action="store_true",
+                   help="exit nonzero if --selfcheck finds divergent "
+                   "reads (for CI/automation)")
     p.add_argument("--device", default="cuda",
                    help="torch device the engine runs on (cuda or cpu)")
     return p
+
+
+def parse_num(s: str) -> int:
+    s = s.strip()
+    mult = 1
+    if s and s[-1] in "kKmMgG":
+        mult = {"k": 10**3, "m": 10**6, "g": 10**9}[s[-1].lower()]
+        s = s[:-1]
+    return int(float(s) * mult + 0.499)
+
+
+def apply_options(args) -> tuple[config.IndexOptions, config.MappingOptions]:
+    io = config.IndexOptions()
+    mo = config.MappingOptions()
+    if args.preset:
+        config.set_opt(args.preset, io, mo)
+    for name, attr in [
+        ("k", "k"), ("e", "e"), ("q", "q"), ("lq", "lq"), ("w", "w"), ("n", "n")
+    ]:
+        v = getattr(args, name)
+        if v is not None:
+            setattr(io, attr, v)
+    simple = {
+        "min_events": "min_events",
+        "max_gap": "max_gap_length",
+        "max_target_gap": "max_target_gap_length",
+        "max_chains": "chaining_band_length",
+        "min_anchors": "min_num_anchors",
+        "best_chains": "num_best_chains",
+        "min_score": "min_chaining_score",
+        "max_chunks": "max_num_chunk",
+        "stop_min_anchor": "min_chain_anchor",
+        "map_min_anchor": "min_chain_anchor_out",
+        "stop_best_ratio": "min_bestmap_ratio",
+        "map_best_ratio": "min_bestmap_ratio_out",
+        "stop_mean_ratio": "min_meanmap_ratio",
+        "map_mean_ratio": "min_meanmap_ratio_out",
+        "bp_per_sec": "bp_per_sec",
+        "sample_rate": "sample_rate",
+        "chunk_size": "chunk_size",
+        "dtw_match_bonus": "dtw_match_bonus",
+        "dtw_min_score": "dtw_min_score",
+        "threshold": "t_threshold",
+        "n_samples": "tn_samples",
+        "test_frequency": "ttest_freq",
+        "min_reads": "tmin_reads",
+    }
+    for arg_name, opt_name in simple.items():
+        v = getattr(args, arg_name)
+        if v is not None:
+            setattr(mo, opt_name, v)
+    if args.minibatch is not None:
+        mo.mini_batch_size = parse_num(args.minibatch)
+    flags = [
+        ("sequence_until", MappingFlag.SEQUENCE_UNTIL),
+        ("dtw_evaluate_chains", MappingFlag.DTW_EVALUATE_CHAINS),
+        ("dtw_output_cigar", MappingFlag.DTW_OUTPUT_CIGAR),
+        ("dtw_log_scores", MappingFlag.DTW_LOG_SCORES),
+        ("no_chainingscore_filtering", MappingFlag.DISABLE_CHAININGSCORE_FILTERING),
+        ("output_chains", MappingFlag.OUTPUT_CHAINS),
+        ("log_anchors", MappingFlag.LOG_ANCHORS),
+        ("log_num_anchors", MappingFlag.LOG_NUM_ANCHORS),
+    ]
+    for arg_name, flag in flags:
+        if getattr(args, arg_name):
+            mo.flag |= flag
+    if args.dtw_border_constraint:
+        mo.dtw_border_constraint = {
+            "global": BorderConstraint.GLOBAL,
+            "sparse": BorderConstraint.SPARSE,
+            "local": BorderConstraint.LOCAL,
+        }[args.dtw_border_constraint]
+    if args.dtw_fill_method:
+        fm = args.dtw_fill_method
+        if fm == "banded":
+            mo.dtw_fill_method = FillMethod.BANDED
+        elif fm == "full":
+            mo.dtw_fill_method = FillMethod.FULL
+        elif fm.startswith("banded="):
+            mo.dtw_fill_method = FillMethod.BANDED
+            mo.dtw_band_radius_frac = float(fm[7:])
+        else:
+            raise SystemExit(f"[ERROR] unknown DTW fill method '{fm}'")
+    return io, mo
 
 
 def _load_or_build_index(args, io, t0):
@@ -40,7 +242,7 @@ def _load_or_build_index(args, io, t0):
     with open(args.target, "rb") as f:
         is_ref_index = f.read(2) == b"RI"
     if is_ref_index:
-        from rawalign_tpu.index.ref_format import load_reference_index
+        from rawalign_tpu_torch.index.ref_format import load_reference_index
 
         idx = load_reference_index(args.target)
         print(f"[M::main::{time.time()-t0:.3f}] loaded the reference-format "
@@ -58,7 +260,7 @@ def _load_or_build_index(args, io, t0):
           f"target sequence(s), {idx.keys.size} seeds", file=sys.stderr)
     if args.dump:
         if args.dump.endswith(".ind"):
-            from rawalign_tpu.index.ref_format import dump_reference_index
+            from rawalign_tpu_torch.index.ref_format import dump_reference_index
 
             dump_reference_index(idx, args.dump)
         else:
@@ -78,7 +280,7 @@ def main(argv=None) -> int:
         print("[ERROR] --profile and --debug-nans are JAX-only options",
               file=sys.stderr)
         return 1
-    io, mo = jcli.apply_options(args)
+    io, mo = apply_options(args)
     idx = _load_or_build_index(args, io, t0)
     if idx is None:
         return 1
@@ -105,13 +307,13 @@ def main(argv=None) -> int:
             pass
     checker = None
     if args.selfcheck > 0.0:
-        from rawalign_tpu.selfcheck import SelfCheck
+        from rawalign_tpu_torch.selfcheck import SelfCheck
 
         checker = SelfCheck(idx, mo, fraction=args.selfcheck,
                             max_reads=args.selfcheck_max_reads)
 
     def reads():
-        from rawalign_tpu.io.prefetch import prefetch_signals
+        from rawalign_tpu_torch.io.prefetch import prefetch_signals
 
         for name, sig in prefetch_signals(files, n_threads=args.threads):
             if name not in already_done:
@@ -121,7 +323,7 @@ def main(argv=None) -> int:
 
     engine = None
     if args.engine == "golden":
-        from rawalign_tpu.golden import engine as gengine
+        from rawalign_tpu_torch.golden import engine as gengine
 
         results = gengine.map_reads(idx, reads(), mo)
     else:

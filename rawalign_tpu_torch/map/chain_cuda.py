@@ -1,9 +1,10 @@
 """Wrapper of the chaining-DP CUDA kernel (``csrc/chain_dp.cu``).
 
 Port of rawalign_tpu/map/chain_pallas.py. :func:`chain_dp` runs the
-kernel on CUDA tensors and the plain PyTorch version
-(``map/chain.py:chain_dp_plain``) on CPU tensors; any other device
-raises. ``launches`` counts kernel launches.
+kernel (a warp per read; ``map/chain.py:chain_dp_scan_plain`` is its
+formulation in plain PyTorch) on CUDA tensors and the plain PyTorch
+version (``map/chain.py:chain_dp_plain``) on CPU tensors; any other
+device raises. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -17,8 +18,9 @@ from rawalign_tpu_torch.kernels import build
 from rawalign_tpu_torch.map import chain
 
 #: shared memory a block may use on Hopper (bytes); a block keeps a ring
-#: of the last W scores there (a power of two of at least min(W, A)
-#: floats), so W may be up to 32768 whatever A is
+#: of seg/target/query/score of the last W anchors and the next 32 there
+#: (16 bytes a slot, a power of two of at least min(W, A) + 32 slots), so
+#: min(W, A) may be up to 8160
 MAX_SMEM = 232448
 
 launches = 0
@@ -57,10 +59,11 @@ def chain_dp(seg: torch.Tensor, target: torch.Tensor, query: torch.Tensor,
             or tuple(n_anchors.shape) != (B,) or not n_anchors.is_contiguous()):
         raise ValueError("chain_dp: n_anchors must be contiguous int32 (B,)")
     ring = 1
-    while ring < min(window, A):
+    while ring < min(window, A) + 32:
         ring *= 2
-    if window < 0 or 4 * ring > MAX_SMEM:
-        raise ValueError(f"chain_dp: window={window} unsupported at A={A}")
+    if window < 0 or 16 * ring > MAX_SMEM:
+        raise ValueError(f"chain_dp: window={window} unsupported at A={A} "
+                         f"(the shared-memory ring takes min(W, A) <= 8160)")
     dev = seg.device
     scores = torch.empty((B, A), dtype=torch.float32, device=dev)
     preds = torch.empty((B, A), dtype=torch.int32, device=dev)

@@ -62,19 +62,17 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
-from rawalign_tpu import native
-from rawalign_tpu.config import MappingFlag, MappingOptions
-from rawalign_tpu.golden import chain as gchain
-from rawalign_tpu.golden import engine as gengine
-from rawalign_tpu.golden import events as gevents
-from rawalign_tpu.index.index import RawIndex
-from rawalign_tpu.io import paf
-from rawalign_tpu.map import anchors as manchors
-from rawalign_tpu.map import postprocess
-from rawalign_tpu.map.postprocess import BorderConstraint, FillMethod
-from rawalign_tpu_torch import runtime
+from rawalign_tpu_torch import native, runtime
+from rawalign_tpu_torch.config import MappingFlag, MappingOptions
+from rawalign_tpu_torch.golden import chain as gchain
+from rawalign_tpu_torch.golden import engine as gengine
+from rawalign_tpu_torch.golden import events as gevents
 from rawalign_tpu_torch.index import query
-from rawalign_tpu_torch.map import chain, stage1_codec, tiles
+from rawalign_tpu_torch.index.index import RawIndex
+from rawalign_tpu_torch.io import paf
+from rawalign_tpu_torch.map import anchors as manchors
+from rawalign_tpu_torch.map import chain, postprocess, stage1_codec, tiles
+from rawalign_tpu_torch.map.postprocess import BorderConstraint, FillMethod
 from rawalign_tpu_torch.seeds import sketch
 from rawalign_tpu_torch.signal import events
 
@@ -745,7 +743,17 @@ class MappingEngine:
                 )
             return
 
-        max_used, _max_true, dropped = expand()
+        # a flag that prints keeps this round's host work on this thread,
+        # so that the groups print in the JAX engine's order; otherwise
+        # the expansion and the traceback run on the worker pool while
+        # the other groups go on, as the native path's tail does
+        in_order = bool(opt.flag & (LOG_FLAGS | MappingFlag.DTW_LOG_SCORES))
+        if in_order:
+            max_used, _max_true, dropped = expand()
+        else:
+            fut = self._pool.submit(expand)
+            yield
+            max_used, _max_true, dropped = fut.result()
         self.counters["anchors_dropped"] += dropped
         if opt.flag & LOG_FLAGS:
             self._log_anchors(slots, chain_this_round, seg_b, tgt_b, qry_b,
@@ -770,8 +778,14 @@ class MappingEngine:
             scores = dp[:, :a]
             preds = dp.view(np.int32)[:, a:]
         mark("chain_dp")
+        if in_order:
+            per_read_chains = chains_of_round(scores, preds)
+        else:
+            fut = self._pool.submit(chains_of_round, scores, preds)
+            yield
+            per_read_chains = fut.result()
         yield from self._round_tail_post(
-            slots, g, chains_of_round(scores, preds), chain_this_round,
+            slots, g, per_read_chains, chain_this_round,
             ev_counts, use_dtw, mark, charge_round,
         )
 

@@ -1,28 +1,78 @@
-"""Device side of the stage1 packed layout (port of the torch-facing half
-of rawalign_tpu/map/stage1_codec.py).
+"""Copy of rawalign_tpu/map/stage1_codec.py for the port: its numpy half
+verbatim, its device half in PyTorch.
 
-The layout is defined once, in the JAX package's codec; this module
-produces it with PyTorch so that the shared numpy ``unpack_stage1``
-reads the port's output unchanged::
+The stage1 packed layout is defined here once: the device side of a
+round (:func:`pack_stage1`) writes it and the host side
+(:func:`unpack_stage1`) reads it back. Layout, per row (int blocks
+bitcast into the f32 payload)::
 
     [ ev_values (NE, optional) | lo (NS) | qc (NS) | scalars (4) ]
 
-with the int32 blocks bitcast into float32. The event block rides the
-download only when the host needs the event values and did not detect
-them itself: the device stage1 with CIGAR output (the JAX engine's
-``_s1_dl_events``). On the hybrid path the host already holds them.
+where ``qc`` packs (qpos, count) into one int32 as ``(qpos << 16) |
+count``: qpos < 2**15 (bounded by max_events_per_chunk) and count <=
+0xFFFF (bounded by max_occ), validated by :func:`validate_bounds` at
+engine construction so misconfiguration fails loudly instead of
+corrupting anchors via the sign-extending unpack shift.
+
+The four scalar columns are, in order: n_events, n_events_dropped,
+n_occ_dropped (seed hits dropped by the occurrence cap), and
+n_compact_dropped (valid seeds beyond the compaction width).
+
+The event block rides the download only when the host needs the event
+values and did not detect them itself: the device stage1 with CIGAR
+output (the JAX engine's ``_s1_dl_events``). On the hybrid path the host
+already holds them. The fused stage1+chain layout of the original is not
+ported, and nor are its functions.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
-from rawalign_tpu.map.stage1_codec import (  # noqa: F401  (shared numpy half)
-    Stage1Host,
-    pack_qc,
-    unpack_stage1,
-    validate_bounds,
-)
+#: qpos rides the high 16 bits through a signed int32; the unpack is an
+#: arithmetic shift, so qpos must stay below 2**15 to keep the sign bit
+#: clear.
+QPOS_LIMIT = 1 << 15
+#: count occupies the low 16 bits.
+COUNT_LIMIT = 1 << 16
+#: trailing int32 scalar columns (see module docstring for the order).
+N_SCALARS = 4
+
+
+def validate_bounds(max_events_per_chunk: int, max_occ: int) -> None:
+    """Fail loudly on configurations the packed codec cannot represent.
+
+    Called from MappingEngine.__init__: both bounds are user-settable
+    (config max_events_per_chunk, CLI --max_occ) and exceeding either
+    would silently corrupt anchors on unpack.
+    """
+    if not 0 < max_events_per_chunk < QPOS_LIMIT:
+        raise ValueError(
+            f"max_events_per_chunk={max_events_per_chunk} out of range for "
+            f"the stage1 (qpos, count) packing: need 0 < value < {QPOS_LIMIT}"
+        )
+    if not 0 < max_occ < COUNT_LIMIT:
+        raise ValueError(
+            f"max_occ={max_occ} out of range for the stage1 (qpos, count) "
+            f"packing: need 0 < value < {COUNT_LIMIT}"
+        )
+
+
+def pack_qc(qpos, count):
+    """Pack (qpos, count) int32 arrays into one int32 word.
+
+    Works on both torch and np arrays (pure arithmetic). Inputs must obey
+    :func:`validate_bounds`.
+    """
+    return (qpos << 16) | count
+
+
+def unpack_qc(qc):
+    """Inverse of :func:`pack_qc` -> (qpos, count)."""
+    return qc >> 16, qc & 0xFFFF
 
 
 def hits_first_perm(count: torch.Tensor) -> torch.Tensor:
@@ -40,3 +90,44 @@ def pack_stage1(lo: torch.Tensor, qc: torch.Tensor, scalars: torch.Tensor,
     parts += [x.to(torch.int32).contiguous().view(torch.float32)
               for x in (lo, qc, scalars)]
     return torch.cat(parts, dim=1)
+
+
+class Stage1Host(NamedTuple):
+    """Host view of one round's unpacked stage1 output."""
+
+    ev_values: np.ndarray | None  # (B, NE) f32, None when device-resident
+    lo: np.ndarray  # (B, NS) int32 — global index-table offsets
+    qpos: np.ndarray  # (B, NS) int32
+    count: np.ndarray  # (B, NS) int32 — 0 for invalid/over-cap seeds
+    n_events: np.ndarray  # (B,) int32
+    n_ev_dropped: np.ndarray  # (B,) int32
+    n_occ_dropped: np.ndarray  # (B,) int32
+    n_compact_dropped: np.ndarray  # (B,) int32
+
+
+def unpack_stage1(packed: np.ndarray, *, ne: int, ns: int,
+                  events_on_host: bool) -> Stage1Host:
+    """Decode the fetched packed f32 array back into host arrays."""
+    expect = (ne if events_on_host else 0) + 2 * ns + N_SCALARS
+    if packed.shape[1] != expect:
+        raise ValueError(
+            f"stage1 packed width {packed.shape[1]} != expected {expect} "
+            f"(ne={ne}, ns={ns}, events_on_host={events_on_host}) — "
+            "producer/consumer layout drift"
+        )
+    pi = packed.view(np.int32)
+    base = ne if events_on_host else 0
+    ev_values = packed[:, :ne] if events_on_host else None
+    lo = pi[:, base : base + ns]
+    qc = pi[:, base + ns : base + 2 * ns]
+    qpos, count = unpack_qc(qc)
+    return Stage1Host(
+        ev_values=ev_values,
+        lo=lo,
+        qpos=qpos,
+        count=count,
+        n_events=pi[:, -4],
+        n_ev_dropped=pi[:, -3],
+        n_occ_dropped=pi[:, -2],
+        n_compact_dropped=pi[:, -1],
+    )

@@ -26,8 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rawalign_tpu import native
-from rawalign_tpu_torch import runtime
+from rawalign_tpu_torch import native, runtime
 from rawalign_tpu_torch.map import dtw_cuda
 
 

@@ -1,7 +1,8 @@
-"""The port's chaining DP (plain PyTorch version) against the JAX scan
+"""The port's chaining DP (both plain PyTorch versions: the window-axis
+DP and the CUDA kernel's warp formulation) against the JAX scan
 (``rawalign_tpu/map/chain.py``) and the native C loop
 (``native.chain_dp``), on the CPU. Scores and predecessors are compared
-exactly: all three do the same int32 arithmetic, the same float32
+exactly: all four do the same int32 arithmetic, the same float32
 division and add, and pick the first maximum in distance order.
 """
 
@@ -62,6 +63,10 @@ def _check(seg, tgt, qry, n, window):
     np.testing.assert_array_equal(got.preds.numpy(), npred)
     np.testing.assert_array_equal(got.scores.numpy(), np.asarray(jdp.scores))
     np.testing.assert_array_equal(got.preds.numpy(), np.asarray(jdp.preds))
+    scan = chain.chain_dp_scan_plain(
+        *(torch.from_numpy(x) for x in (seg, tgt, qry, n)), **kw)
+    assert torch.equal(scan.scores, got.scores)
+    assert torch.equal(scan.preds, got.preds)
     return got
 
 

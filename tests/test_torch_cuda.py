@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test here is marked ``cuda`` and skips without a card.
 
-This file imports no JAX, so on a machine without it run it as
+This file imports no JAX and nothing of the JAX package (the golden
+engine, options, index build and native bindings are the port's own
+copies), so on a machine without it run it as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -18,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from rawalign_tpu import config, native
-from rawalign_tpu.golden import events as gevents
+from rawalign_tpu_torch import config, native
+from rawalign_tpu_torch.golden import events as gevents
 from rawalign_tpu_torch.map import chain, chain_cuda, dtw, dtw_cuda, dtw_family, tiles
 from rawalign_tpu_torch.seeds import sketch, sketch_cuda
 from rawalign_tpu_torch.signal import events, events_cuda
@@ -161,7 +163,9 @@ def test_event_kernel_matches_plain_and_native(dev, L, max_events):
     assert int(got.n_events.sum()) > 0
 
 
-def _chain_rows(rng, B, A):
+def _chain_rows(rng, B, A, interleave=False):
+    """Sorted rows with co-linear runs; with ``interleave`` sorted by
+    (target, query) alone, so the segments alternate inside the window."""
     seg = np.full((B, A), 0x7FFFFFFF, np.int32)
     tgt = np.zeros((B, A), np.int32)
     qry = np.zeros((B, A), np.int32)
@@ -177,19 +181,24 @@ def _chain_rows(rng, B, A):
             s[k : k + run.size] = s[k]
             t[k : k + run.size] = t[k] + run * 10
             q[k : k + run.size] = q[k] + run * 9
-        o = np.lexsort((q, t, s))
+        o = np.lexsort((q, t) if interleave else (q, t, s))
         seg[b, :m], tgt[b, :m], qry[b, :m] = s[o], t[o], q[o]
     return seg, tgt, qry, n
 
 
-@pytest.mark.parametrize("window,B,A", [
-    (8, 32, 2048), (64, 32, 4096), (2048, 8, 1024), (64, 2, 1 << 17),
+@pytest.mark.parametrize("window,B,A,interleave", [
+    (8, 32, 2048, False), (64, 32, 4096, False), (2048, 8, 1024, False),
+    (64, 2, 1 << 17, False), (1, 8, 512, False), (31, 8, 512, True),
+    (32, 8, 512, True), (33, 8, 512, True), (2048, 8, 4096, True),
+    (8160, 2, 9000, True),
 ])
-def test_chain_kernel_matches_plain_and_native(dev, window, B, A):
-    """At A = 1<<17 (the anchor ceiling) only against native: the plain
-    version would step 131072 anchors one launch sequence at a time."""
+def test_chain_kernel_matches_plain_and_native(dev, window, B, A, interleave):
+    """Up to A = 4096 also against both plain versions (the warp-form scan
+    on the CPU); at A = 1<<17 (the anchor ceiling) and at the widest
+    window the kernel takes (8160) only against native: the plain
+    versions would step every anchor one launch sequence at a time."""
     rng = np.random.default_rng(window + A)
-    seg, tgt, qry, n = _chain_rows(rng, B, A)
+    seg, tgt, qry, n = _chain_rows(rng, B, A, interleave)
     kw = dict(window=window, **CHAIN_KW)
     d = [torch.from_numpy(x).to(dev) for x in (seg, tgt, qry, n)]
     before = chain_cuda.launches
@@ -200,10 +209,23 @@ def test_chain_kernel_matches_plain_and_native(dev, window, B, A):
         want = chain.chain_dp_plain(*d, **kw)
         assert torch.equal(got.scores, want.scores)
         assert torch.equal(got.preds, want.preds)
+        scan = chain.chain_dp_scan_plain(
+            *(torch.from_numpy(x) for x in (seg, tgt, qry, n)), **kw)
+        assert torch.equal(got.scores.cpu(), scan.scores)
+        assert torch.equal(got.preds.cpu(), scan.preds)
     ns, npred = native.chain_dp(seg, tgt, qry, n, **kw)
     np.testing.assert_array_equal(got.scores.cpu().numpy(), ns)
     np.testing.assert_array_equal(got.preds.cpu().numpy(), npred)
     assert (npred != np.arange(A)).any()
+
+
+def test_chain_kernel_refuses_a_window_beyond_its_ring(dev):
+    """min(W, A) above 8160 does not fit the shared-memory ring: the
+    wrapper raises, with no other kernel to fall back to."""
+    x = torch.zeros((1, 9000), dtype=torch.int32, device=dev)
+    n = torch.full((1,), 9000, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="window=8161"):
+        chain_cuda.chain_dp(x, x, x, n, window=8161, **CHAIN_KW)
 
 
 @pytest.mark.parametrize("w", [1, 5])
@@ -249,10 +271,10 @@ def test_dtw_family_on_the_card_matches_cpu(dev, semiglobal, radius):
 def _engine_matches_golden(dev, flags=config.MappingFlag.NONE, **modes):
     import re
 
-    from rawalign_tpu.golden import engine as gengine
-    from rawalign_tpu.index import index as dindex
-    from rawalign_tpu.io import paf
-    from rawalign_tpu.testing import synth
+    from rawalign_tpu_torch.golden import engine as gengine
+    from rawalign_tpu_torch.index import index as dindex
+    from rawalign_tpu_torch.io import paf
+    from rawalign_tpu_torch.testing import synth
     from rawalign_tpu_torch.map.engine import MappingEngine
 
     ds = synth.make_dataset(seed=11, genome_lengths=[12_000, 6_000],

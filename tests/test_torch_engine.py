@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from rawalign_tpu import cli as jcli
-from rawalign_tpu import config, native
+from rawalign_tpu import config
 from rawalign_tpu.golden import engine as gengine
 from rawalign_tpu.golden import events as gevents
 from rawalign_tpu.index import index as dindex
@@ -30,9 +30,13 @@ from rawalign_tpu.map.stage1_codec import unpack_stage1
 from rawalign_tpu.pore_model import save_pore_model
 from rawalign_tpu.testing import synth
 from rawalign_tpu_torch import cli as tcli
-from rawalign_tpu_torch import runtime
+from rawalign_tpu_torch import native, runtime
+from rawalign_tpu_torch.config import options_from
+from rawalign_tpu_torch.index.index import index_from
+from rawalign_tpu_torch.io import paf as tpaf
 from rawalign_tpu_torch.kernels import build
-from rawalign_tpu_torch.map.engine import MappingEngine
+from rawalign_tpu_torch.map import stage1_codec as tcodec
+from rawalign_tpu_torch.map.engine import MappingEngine as _PortEngine
 
 torch.set_num_threads(1)
 
@@ -42,6 +46,19 @@ ENGINE_KW = dict(batch_size=4, chain_window=2048, max_occ=256, max_anchors=2048)
 
 def _strip_time(line: str) -> str:
     return re.sub(r"mt:f:[0-9.]+", "mt:f:X", line)
+
+
+def MappingEngine(index, opt, **kw):
+    """The port's engine on an index and options built with the JAX
+    package, carried into the port's own classes."""
+    return _PortEngine(index_from(index), options_from(opt), **kw)
+
+
+def line_of(res) -> str:
+    """A result's PAF line (mt:f stripped) by the formatter of the package
+    that made it."""
+    fmt = tpaf if isinstance(res, tpaf.MappingResult) else paf
+    return _strip_time(fmt.paf_line(res))
 
 
 @pytest.fixture(autouse=True)
@@ -103,7 +120,7 @@ def golden(setup):
 def _map(engine_cls, idx, reads, use_dtw, **kw):
     """{read name: PAF line} of one engine pass, and the engine."""
     eng = engine_cls(idx, _opts(use_dtw), **{**ENGINE_KW, **kw})
-    lines = {r.read_name: _strip_time(paf.paf_line(r)) for r in eng.map_reads(reads)}
+    lines = {r.read_name: line_of(r) for r in eng.map_reads(reads)}
     eng.close()
     return lines, eng
 
@@ -160,7 +177,7 @@ def test_stage1_matches_jax_hybrid_stage1(setup):
     tout = teng._stage1(packed, thist, hist_off)
     ns = teng._ns_out
     want = unpack_stage1(np.asarray(jout), ne=ne, ns=ns, events_on_host=False)
-    got = unpack_stage1(tout.numpy(), ne=ne, ns=ns, events_on_host=False)
+    got = tcodec.unpack_stage1(tout.numpy(), ne=ne, ns=ns, events_on_host=False)
     for g, w in zip(got, want):
         if w is None:
             assert g is None
@@ -220,11 +237,9 @@ def test_slice_matches_jax_engine_and_golden(setup, use_dtw):
     mo = _opts(use_dtw)
     teng = MappingEngine(idx, mo, device="cpu", dtw_device_max_n=256,
                          dtw_device_max_b=256, **ENGINE_KW)
-    got = {r.read_name: _strip_time(paf.paf_line(r))
-           for r in teng.map_reads(reads)}
+    got = {r.read_name: line_of(r) for r in teng.map_reads(reads)}
     jeng = JaxEngine(idx, mo, stage1_impl="hybrid", **ENGINE_KW)
-    jgot = {r.read_name: _strip_time(paf.paf_line(r))
-            for r in jeng.map_reads(reads)}
+    jgot = {r.read_name: line_of(r) for r in jeng.map_reads(reads)}
     for name, sig in reads:
         want = _strip_time(paf.paf_line(gengine.map_read(idx, sig, name, mo)))
         assert got[name] == want, (name, want, got[name])
@@ -241,9 +256,9 @@ def test_slice_matches_jax_engine_and_golden(setup, use_dtw):
 def test_port_never_imports_jax():
     code = (
         "import sys, numpy as np\n"
-        "from rawalign_tpu import config\n"
-        "from rawalign_tpu.index import index as dindex\n"
-        "from rawalign_tpu.testing import synth\n"
+        "from rawalign_tpu_torch import config\n"
+        "from rawalign_tpu_torch.index import index as dindex\n"
+        "from rawalign_tpu_torch.testing import synth\n"
         "from rawalign_tpu_torch.map.engine import MappingEngine\n"
         "import rawalign_tpu_torch.cli\n"
         "ds = synth.make_dataset(seed=3, genome_lengths=[6000], n_reads=1)\n"
@@ -256,6 +271,7 @@ def test_port_never_imports_jax():
         "    out = list(eng.map_reads([(ds.reads[0].name, ds.reads[0].signal)]))\n"
         "    assert len(out) == 1 and out[0].mapped\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'rawalign_tpu' not in sys.modules, 'JAX package imported'\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -11,10 +11,9 @@ import torch
 from rawalign_tpu import config
 from rawalign_tpu.config import MappingFlag as F
 from rawalign_tpu.golden import events as gevents
-from rawalign_tpu.io import paf
 from rawalign_tpu_torch.map import engine as tengine
 from rawalign_tpu_torch.map.stage1_codec import unpack_stage1
-from test_torch_engine import _cli_against_jax_cli
+from test_torch_engine import _cli_against_jax_cli, line_of
 from test_torch_flags import (  # noqa: F401  (fixtures)
     ENGINE_KW,
     JAX_KW,
@@ -22,7 +21,6 @@ from test_torch_flags import (  # noqa: F401  (fixtures)
     JaxEngine,
     MappingEngine,
     _need_native,
-    _strip_time,
     build_index,
     dataset,
     run,
@@ -48,7 +46,7 @@ def test_host_stage1_matches_jax_host_stage1(capsys, preset, use_dtw):
     assert (eng.counters["dtw_tiles_device"] > 0) == use_dtw
     want, _ = run(JaxEngine, idx, reads, mo, capsys,
                   **{**JAX_KW, "stage1_impl": "host"})
-    assert {n: _strip_time(paf.paf_line(r)) for n, r in got.items()} == want
+    assert {n: line_of(r) for n, r in got.items()} == want
     assert sum(r.mapped for r in got.values()) >= 5
 
 
@@ -62,7 +60,7 @@ def test_host_stage1_oversized_tiles_read_the_host_pool(capsys):
     mo.set_flag(F.DTW_EVALUATE_CHAINS)
     eng = MappingEngine(idx, mo, **ENGINE_KW, **JAX_KW | {"stage1_impl": "host"},
                         device="cpu")
-    got = {r.read_name: _strip_time(paf.paf_line(r)) for r in eng.map_reads(reads)}
+    got = {r.read_name: line_of(r) for r in eng.map_reads(reads)}
     eng.close()
     assert eng.counters["dtw_tiles_device"] == 0
     assert eng.counters["dtw_tiles_host_large"] > 0
@@ -73,7 +71,7 @@ def test_host_stage1_oversized_tiles_read_the_host_pool(capsys):
 
 def test_stage1_download_carries_the_events():
     """The device stage1 under CIGAR output prepends the (B, ne) event
-    block; the shared unpack reads the host detector's events from it and
+    block; the codec's unpack reads the host detector's events from it and
     the same seed blocks the hybrid stage1 gives."""
     idx = build_index("viral")
     reads = dataset()[1]

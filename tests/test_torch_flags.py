@@ -19,14 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from rawalign_tpu import config, native
+from rawalign_tpu import config
 from rawalign_tpu.config import MappingFlag as F
 from rawalign_tpu.golden import engine as gengine
 from rawalign_tpu.index import index as dindex
 from rawalign_tpu.io import paf
 from rawalign_tpu.map.engine import MappingEngine as JaxEngine
 from rawalign_tpu.testing import synth
-from rawalign_tpu_torch.map.engine import MappingEngine
+from rawalign_tpu_torch import native
+from test_torch_engine import MappingEngine, line_of
 
 torch.set_num_threads(1)
 
@@ -102,7 +103,7 @@ def run(engine_cls, idx, reads, mo, capsys, **kw):
     """({read name: PAF line}, stderr) of one engine pass."""
     capsys.readouterr()
     eng = engine_cls(idx, mo, **{**ENGINE_KW, **kw})
-    lines = {r.read_name: _strip_time(paf.paf_line(r)) for r in eng.map_reads(reads)}
+    lines = {r.read_name: line_of(r) for r in eng.map_reads(reads)}
     eng.close()
     return lines, capsys.readouterr().err
 

@@ -1,0 +1,78 @@
+"""The port imports nothing of JAX and nothing of the JAX package.
+
+Two checks: every module of ``rawalign_tpu_torch`` imported in a fresh
+interpreter leaves no ``jax`` and no ``rawalign_tpu`` module in
+``sys.modules``; and the source of the package and of ``chip_smoke.py``,
+strings and comments included, names the JAX package nowhere except as a
+file path (``rawalign_tpu/...``): the docstrings say which file each copy
+mirrors and the kernel record names the TPU kernel each CUDA kernel
+replaces, and a path is read by people, never imported.
+"""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: the JAX package's name as a module (dotted, quoted, alone), not as the
+#: port's prefix and not as the start of a file path
+JAX_PACKAGE = re.compile(r"rawalign_tpu(?!_torch|/)")
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import rawalign_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rawalign_tpu_torch.__path__,
+                                               "rawalign_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "rawalign_tpu")
+             or k.startswith(("jax.", "rawalign_tpu.")))
+print(len(names))
+print(bad)
+"""
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "rawalign_tpu_torch")):
+        out += [os.path.join(root, f) for f in files
+                if f.endswith((".py", ".cu", ".cuh"))]
+    return sorted(out)
+
+
+def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
+    proc = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n, bad = proc.stdout.strip().splitlines()
+    assert int(n) >= 40  # the port's own modules and its host copies
+    assert bad == "[]"
+
+
+def test_sources_name_the_jax_package_only_as_a_path():
+    hits = []
+    for path in _sources():
+        with open(path) as f:
+            for k, line in enumerate(f, 1):
+                if JAX_PACKAGE.search(line):
+                    hits.append(f"{os.path.relpath(path, REPO)}:{k}: {line.strip()}")
+    assert len(_sources()) >= 40
+    assert not hits, "\n".join(hits)
+
+
+@pytest.mark.parametrize("text,named", [
+    ("from rawalign_tpu import native", True),
+    ("import rawalign_tpu.config", True),
+    ("from rawalign_tpu.golden import engine", True),
+    ("importlib.import_module('rawalign_tpu')", True),
+    ('"rawalign_tpu"', True),
+    ("from rawalign_tpu_torch import native", False),
+    ('"replaces": "rawalign_tpu/map/chain_pallas.py:162"', False),
+])
+def test_the_scan_tells_a_module_from_a_path(text, named):
+    assert bool(JAX_PACKAGE.search(text)) == named
