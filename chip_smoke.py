@@ -17,8 +17,11 @@ Phases (each raises on failure; the script then exits non-zero):
    evaluation: a warm pass (whose first DTW round is kept), then the
    sketch and DTW kernels checked bit for bit against their plain
    PyTorch versions on the card at the shapes of that path — the sketch
-   scan at B=32, NE=2048, e=6, the banded DTW on the kept round's tiles
-   and on a synthetic tile mix up to 2048 — and timed beside them; then
+   scan at B=32, NE=2048, e=6 (and on a batch of awkward rows: masked
+   starts and runs, a row of similar events, NaN events, 0, 1, e-1 and e
+   events, a seed wider than the uint32 pack), the banded DTW on the
+   kept round's tiles and on a synthetic tile mix up to 2048 — and timed
+   beside them; then
    the launch counters are zeroed and a timed pass maps every read
    again. It fails if either kernel was not launched in that pass or no
    DTW tile ran on the card, and unless the first 16 reads' PAF lines
@@ -28,7 +31,12 @@ Phases (each raises on failure; the script then exits non-zero):
    Python round tail, device DTW) on the same reads: a warm pass (whose
    first chain round is kept), then the event kernel checked on the
    first chunk of 32 reads (B=32, L=4000) against its plain version on
-   the card and the native detector, the chain kernel on the kept round
+   the card and the native detector (and on a batch of awkward rows:
+   empty, constant, one event, too short and just long enough for the
+   long window, the long detector masked at the last sample, noise; then
+   on 32 rows of white noise and 32 of long dwells, where it also logs
+   how many chunks of the peak machine ran again and the time per call),
+   the chain kernel on the kept round
    and on two synthetic rounds of 16384 anchors (W=64, segments sorted;
    W=2048, segments interleaved) against both plain versions (the plain
    DP on the card, the warp-form scan on the host CPU) and
@@ -55,8 +63,9 @@ Phases (each raises on failure; the script then exits non-zero):
       DTW): the first 16 lines equal the same engine at ``device="cpu"``.
 
 Every kernel's record carries its time, its plain version's, and its
-bound: the larger of its bytes at the card's memory rate and the
-operations this run's data needs at its scalar rate (see ``bound``).
+bound: the larger of the bytes its launch must move at the card's memory
+rate and the operations this run's data needs at its scalar rate (see
+``bound``).
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. It imports neither JAX nor the JAX
 package: the golden engine, options, index build and native bindings are
@@ -245,10 +254,39 @@ def check_sketch(ds, mo, io, device, reps: int = 20) -> dict:
         if not torch.equal(g, w):
             raise RuntimeError("sketch_scan kernel disagrees with the plain scan")
     err = float((got[0] - want[0]).abs().max())
-    bms, by = bound(nbytes(ev_d, n_d, got), SKETCH_OPS * int(n_ev.sum()))
+    # the bound: each row's events and its count read, hashes, emit, oldest
+    # and cnt written (newest is a view the wrapper makes, not the kernel)
+    moved = 4 * int(n_ev.sum()) + nbytes(n_d, got[0], got[1], got[3], got[4])
+    bms, by = bound(moved, SKETCH_OPS * int(n_ev.sum()))
     log(f"[sketch] B={B} NE={ne} e={io.e}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.2f} ms, bit-identical ({int(got[1].sum())} seeds); "
         f"bound {bms:.6f} ms ({by})")
+    # awkward rows at the same width, with the path's seed and with one
+    # wider than the uint32 pack (16 codes of 5 bits)
+    t0 = time.perf_counter()
+    mask = np.float32(3.402823466e32)
+    rng = np.random.default_rng(3)
+    odd = rng.normal(0.0, 1.0, (12, ne)).astype(np.float32)
+    odd[rng.random(odd.shape) < 0.02] = mask
+    odd[0, 0] = mask
+    odd[1, : ne // 3] = mask
+    odd[2, :] = mask
+    odd[3, :] = 0.5 + rng.uniform(-0.14, 0.14, ne).astype(np.float32)
+    odd[4, 0] = np.nan
+    odd[4, rng.integers(0, ne, 8)] = np.nan
+    odd_n = np.array([ne] * 5 + [0, 1, io.e - 1, io.e, 15, 16, ne - 1], np.int32)
+    odd_d = torch.from_numpy(odd).to(device)
+    odd_nd = torch.from_numpy(odd_n).to(device)
+    for e, q, lq in ((io.e, io.q, io.lq), (16, io.q, io.lq)):
+        got_odd = sketch_cuda.sketch_scan(odd_d, odd_nd, e=e, q=q, lq=lq)
+        want_odd = sketch._sketch_scan(odd_d, odd_nd, e, q, lq)
+        for g, w in zip(got_odd, want_odd):
+            if not torch.equal(g, w):
+                raise RuntimeError(f"sketch_scan kernel disagrees with the "
+                                   f"plain scan on the awkward rows (e={e})")
+        err = max(err, float((got_odd[0] - want_odd[0]).abs().max()))
+    log(f"[sketch] 12 awkward rows, e={io.e} and e=16: bit-identical "
+        f"({time.perf_counter() - t0:.1f} s)")
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, bound_ms=bms,
                 bound_by=by)
 
@@ -344,6 +382,131 @@ def _same(a, b) -> bool:
     return a.shape == b.shape and bool(((a == b) | (a.isnan() & b.isnan())).all())
 
 
+EDGE_L = 1021  # width of the awkward event rows: no multiple of a warp
+
+
+def _check_event_edges(read, kw: dict, device) -> float:
+    """The event kernel against the plain detector and the native one on
+    awkward rows, EDGE_L wide: empty, constant, one event (NaN z-norm), 9,
+    2*w2 - 1 and 2*w2 samples, ``read`` cut three samples after a peak of
+    the short detector above its threshold (the long detector is masked at
+    the last sample, where the short one fires), noise at full width with
+    the events capped. Returns the largest difference to the plain values."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu_torch import native
+    from rawalign_tpu_torch.signal import events, events_cuda
+
+    t0 = time.perf_counter()
+    w1, w2 = kw["w1"], kw["w2"]
+    read = read[:EDGE_L]
+    sig1 = torch.from_numpy(read)[None, :]
+    n1 = torch.tensor([read.size])
+    t1 = events._tstat(*events._prefix_sums(sig1, n1, read.size), n1, w1)[0]
+    p = int(torch.nonzero(t1[: read.size - w1] > 2 * kw["threshold1"])[-1, 0])
+    while t1[p + 1] > t1[p]:
+        p += 1
+    rng = np.random.default_rng(4)
+    step = np.concatenate([np.full(500, 90.0), np.full(500, 110.0)])
+    rows = [np.zeros(0, np.float32), np.full(1000, 95.0, np.float32),
+            step.astype(np.float32)]
+    rows += [rng.normal(95.0, 10.0, n).astype(np.float32)
+             for n in (9, 2 * w2 - 1, 2 * w2)]
+    rows += [read[: p + w1], rng.normal(95.0, 15.0, EDGE_L).astype(np.float32)]
+    sig = np.zeros((len(rows), EDGE_L), np.float32)
+    lens = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        sig[i, : r.size] = r
+        lens[i] = r.size
+    sig_d = torch.from_numpy(sig).to(device)
+    lens_d = torch.from_numpy(lens).to(device)
+    cap = 16
+    kw = dict(kw, max_events=cap)
+    got = events_cuda.detect_events(sig_d, lens_d, **kw)
+    want = events.detect_events_plain(sig_d, lens_d, **kw)
+    if not (torch.equal(got.n_events, want.n_events)
+            and torch.equal(got.n_dropped, want.n_dropped)
+            and _same(got.values, want.values)):
+        raise RuntimeError("event kernel disagrees with the plain detector "
+                           "on the awkward rows")
+    values = got.values.cpu().numpy()
+    for i, r in enumerate(rows[1:], 1):
+        ev = native.detect_events(r, **{
+            k: v for k, v in kw.items() if k != "max_events"})
+        n = int(got.n_events[i])
+        if (n != min(ev.size, cap) or int(got.n_dropped[i]) != max(ev.size - cap, 0)
+                or not np.array_equal(values[i, :n], ev[:cap], equal_nan=True)):
+            raise RuntimeError("event kernel disagrees with native.detect_events "
+                               f"on awkward row {i}")
+    if int(got.n_events[2]) != 1 or int(got.n_dropped[-1]) == 0:
+        raise RuntimeError("the awkward event rows do not exercise what they "
+                           "were built for")
+    log(f"[events] {len(rows)} awkward rows, L={EDGE_L}: bit-identical to plain "
+        f"and native (events {got.n_events.tolist()}, dropped "
+        f"{int(got.n_dropped[-1])}; {time.perf_counter() - t0:.1f} s)")
+    diff = (got.values - want.values).abs()
+    return float(torch.where(diff.isnan(), 0.0, diff).max())
+
+
+def _check_event_reruns(reads_d, reads_n, kw: dict, device, calls: int = 50):
+    """How often the event kernel's peak machine guesses a chunk's start
+    state wrong, and what that costs: the rows of the main check
+    (``reads_d``), as many rows of white noise and as many of long dwells
+    (levels held 200 samples on average), each batch held to
+    ``native.detect_events`` bit for bit. Logs per batch the chunks run
+    again and the rounds of such runs in one call, and the milliseconds
+    per call of ``calls`` launches made back to back between two CUDA
+    events (the wrapper's host time bounds it from below)."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu_torch import native
+    from rawalign_tpu_torch.signal import events_cuda
+
+    t0 = time.perf_counter()
+    B, L = reads_d.shape
+    rng = np.random.default_rng(6)
+    noise = rng.normal(95.0, 15.0, (B, L)).astype(np.float32)
+    dwell = np.zeros((B, L), np.float32)
+    for row in dwell:
+        i = 0
+        while i < L:
+            n = int(rng.geometric(1 / 200))
+            row[i : i + n] = rng.normal(95.0, 12.0)
+            i += n
+    dwell += rng.normal(0.0, 1.5, (B, L)).astype(np.float32)
+    full = torch.full((B,), L, dtype=torch.int32, device=device)
+    nat_kw = {k: v for k, v in kw.items() if k != "max_events"}
+    for label, sig, lens_d in (("reads", None, reads_n), ("noise", noise, full),
+                               ("long dwells", dwell, full)):
+        sig_d = reads_d if sig is None else torch.from_numpy(sig).to(device)
+        events_cuda.reruns(device)
+        got = events_cuda.detect_events(sig_d, lens_d, **kw)
+        chunks, rounds = events_cuda.reruns(device)
+        if sig is not None:
+            values = got.values.cpu().numpy()
+            for i in range(B):
+                ev = native.detect_events(sig[i], **nat_kw)[: kw["max_events"]]
+                if (int(got.n_events[i]) != ev.size
+                        or not np.array_equal(values[i, : ev.size], ev)):
+                    raise RuntimeError(f"event kernel disagrees with "
+                                       f"native.detect_events on {label} row {i}")
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(calls):
+            events_cuda.detect_events(sig_d, lens_d, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        log(f"[events] {label}, B={B} L={L}: {chunks} chunks of the peak "
+            f"machine run again in {rounds} rounds (of {2 * B} detector "
+            f"rows); {a.elapsed_time(b) / calls:.4f} ms per call, {calls} "
+            f"calls back to back ({int(got.n_events.sum())} events)")
+    log(f"[events] re-run check {time.perf_counter() - t0:.1f} s")
+
+
 def check_events(ds, mo, device, reps: int = 20) -> dict:
     """Kernel against the plain detector (on the card) and the native
     detector on the first chunk of 32 reads."""
@@ -382,7 +545,12 @@ def check_events(ds, mo, device, reps: int = 20) -> dict:
                                f"on read {i}")
     diff = (got.values - want.values).abs()
     err = float(torch.where(diff.isnan(), 0.0, diff).max())
-    bms, by = bound(nbytes(sig_d, lens_d, got), EVENT_OPS * int(lens.sum()))
+    err = max(err, _check_event_edges(sig[0, : lens[0]], kw, device))
+    _check_event_reruns(sig_d, lens_d, kw, device)
+    # the bound: each row's samples and its length read, the events and the
+    # two counts written
+    moved = 4 * int(lens.sum()) + nbytes(lens_d, got)
+    bms, by = bound(moved, EVENT_OPS * int(lens.sum()))
     log(f"[events] B={B} L={L}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, "
         f"bit-identical to plain and native ({int(got.n_events.sum())} "
         f"events); bound {bms:.6f} ms ({by})")

@@ -17,20 +17,36 @@
 // into one int32 and so needed NE < 8192; this kernel writes them
 // separately and has no such limit.
 //
-// What bounds it: the scan is a loop-carried recurrence along the event
-// axis, so the only parallelism is across reads. One mapping round
-// sketches B = 32..64 reads of up to 2048 events, i.e. one block of
-// B threads: the kernel is latency-bound (2048 dependent steps of a few
-// integer ops plus one load and four stores each), not bandwidth-bound
-// (about 1 MB moved per call). One thread per read with the ring in
-// registers is therefore the simple design; making it faster (staging
-// event rows through shared memory, splitting the hash into a second
-// parallel pass) is left to later work.
+// What bounds it: the only loop-carried recurrence is WHICH events are
+// kept (an event is kept by comparison with the last kept one); the
+// count, the ring, the pack and the hash are functions of the kept list.
+// The call moves about 1 MB, so the recurrence's latency is what counts.
+// One block per read (the formulation of
+// seeds/sketch.py:_sketch_scan_jump_plain):
+//   1. the row's n events are loaded coalesced into shared memory;
+//   2. every thread j finds next[j], the first event after j that would
+//      be kept if j were the last kept one (a scan of one or two slots on
+//      real reads); the kept list is the orbit of the first non-masked
+//      event under next;
+//   3. five rounds of pointer doubling give next^32; thread 0 walks it
+//      (one dependent shared load per 32 kept events) and writes every
+//      32nd kept position, then one thread per such anchor walks next
+//      for the 31 positions after it: the serial part is n/32 + 32
+//      dependent loads, not n;
+//   4. cnt is filled by rank (slots from the r-th kept position up to
+//      the next hold r), and every slot's oldest, emit, pack and hash
+//      follow from cnt and the kept list elementwise; all four outputs
+//      are written by the whole block, coalesced.
+// A block keeps 4 (NE + 1) words: the events, next (then cnt), the kept
+// list (and every other doubling level), next^32. That is 32 KB at
+// NE = 2048, in dynamic shared memory; a row too long for shared memory
+// gets the same layout in a device buffer the wrapper allocates.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define RA_SKETCH_MAX_E 16
+#define RA_SKETCH_THREADS 512
+#define RA_SKETCH_STRIDE 32  // 2^5: five doubling rounds
 
 __device__ __forceinline__ uint32_t ra_hash64_u32(uint32_t key) {
   key = (~key) + (key << 21);
@@ -43,71 +59,157 @@ __device__ __forceinline__ uint32_t ra_hash64_u32(uint32_t key) {
   return key;
 }
 
-__global__ void ra_sketch_scan_kernel(
+// kGlobal: the block's rows lie in the device buffer `scratch`, else in
+// dynamic shared memory (two instances, so that the shared one addresses
+// shared memory directly).
+template <bool kGlobal>
+__global__ void __launch_bounds__(RA_SKETCH_THREADS) ra_sketch_scan_kernel(
     const float* __restrict__ events, const int* __restrict__ n_events,
-    int B, int NE, int e, int q, int lq,
+    int NE, int e, int q, int lq, int* scratch,
     long long* __restrict__ hashes, unsigned char* __restrict__ emit_out,
     int* __restrict__ oldest_out, int* __restrict__ cnt_out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ int smem[];
+  __shared__ int s_start, s_anchors, s_kept;
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int T = blockDim.x;
+  const size_t W = (size_t)NE + 1;
+  int* base = kGlobal ? scratch + (size_t)b * 4 * W : smem;
+  float* val = reinterpret_cast<float*>(base);
+  int* nxt = base + W;       // next; cnt once the kept list stands
+  int* kept = base + 2 * W;  // doubling levels 2, 4 (next^4, next^16); then the kept list
+  int* jmp = base + 3 * W;   // doubling levels 1, 3, 5 (next^2, next^8, next^32)
   const size_t row = (size_t)b * (size_t)NE;
   const float* ev = events + row;
-  const int n = n_events[b];
+  int n = n_events[b];
+  n = n < 0 ? 0 : (n > NE ? NE : n);
+  const float last_sig_diff = 0.3f;
+  const float mask_signal = 3.402823466e32f;
+
+  // 1. the row's events
+  for (int i = tid; i < n; i += T) val[i] = ev[i];
+  __syncthreads();
+
+  // 2. next[j]: the first event after j that is kept when j is the last
+  //    kept one (n when none is); the same float test as the serial scan,
+  //    so a NaN event is kept and keeps its successor
+  for (int j = tid; j < n; j += T) {
+    const float v = val[j];
+    int i = j + 1;
+    for (; i < n; ++i) {
+      const float w = val[i];
+      if (w != mask_signal && !(fabsf(w - v) < last_sig_diff)) break;
+    }
+    nxt[j] = i;
+  }
+  if (tid == 0) {
+    nxt[n] = n;
+    s_anchors = 0;
+    s_kept = 0;
+  }
+  __syncthreads();
+  // event 0 bypasses the similarity test; when it is the mask value, the
+  // comparison value stays the mask value and next[0] is the first kept
+  if (tid == 0) s_start = n > 0 ? (val[0] != mask_signal ? 0 : nxt[0]) : 0;
+
+  // 3a. next^32 by five rounds of doubling between the two spare rows
+  for (int j = tid; j <= n; j += T) jmp[j] = nxt[nxt[j]];
+  __syncthreads();
+  for (int j = tid; j <= n; j += T) kept[j] = jmp[jmp[j]];
+  __syncthreads();
+  for (int j = tid; j <= n; j += T) jmp[j] = kept[kept[j]];
+  __syncthreads();
+  for (int j = tid; j <= n; j += T) kept[j] = jmp[jmp[j]];
+  __syncthreads();
+  for (int j = tid; j <= n; j += T) jmp[j] = kept[kept[j]];
+  __syncthreads();
+  // 3b. every 32nd kept position, by one thread
+  if (tid == 0) {
+    int m = 0;
+    for (int p = s_start; p < n; p = jmp[p]) kept[(m++) * RA_SKETCH_STRIDE] = p;
+    s_anchors = m;
+  }
+  __syncthreads();
+  // 3c. the 31 kept positions after each anchor; only the last anchor
+  //     can run off the row, and where it does the kept count is known
+  const int anchors = s_anchors;
+  for (int m = tid; m < anchors; m += T) {
+    int p = kept[m * RA_SKETCH_STRIDE];
+    int t = 1;
+    for (; t < RA_SKETCH_STRIDE; ++t) {
+      p = nxt[p];
+      if (p >= n) break;
+      kept[m * RA_SKETCH_STRIDE + t] = p;
+    }
+    if (m == anchors - 1) s_kept = m * RA_SKETCH_STRIDE + t;
+  }
+  __syncthreads();
+
+  // 4. cnt[i] = kept positions up to i: slots from the (r-1)-th kept
+  //    position up to the r-th hold r (next is dead: its row takes cnt)
+  const int K = s_kept;
+  int* cnt = nxt;
+  for (int r = tid; r <= K; r += T) {
+    const int lo = r ? kept[r - 1] : 0;
+    const int hi = r < K ? kept[r] : n;
+    for (int i = lo; i < hi; ++i) cnt[i] = r;
+  }
+  __syncthreads();
+
+  // 5. every slot's outputs from cnt and the kept list; slots past n
+  //    repeat the last state
   const int quant_bit = lq + 2;
   const int nbits = quant_bit * e;
   const uint32_t mask = nbits < 32 ? ((1u << nbits) - 1u) : 0xFFFFFFFFu;
   const uint32_t mask_lq = (1u << lq) - 1u;
-  const float last_sig_diff = 0.3f;
-  const float mask_signal = 3.402823466e32f;
-
-  float last = ev[0];
-  uint32_t acc = 0;
-  int cnt = 0;
-  int ring[RA_SKETCH_MAX_E];
-#pragma unroll
-  for (int k = 0; k < RA_SKETCH_MAX_E; ++k) ring[k] = 0;
-
-  for (int i = 0; i < NE; ++i) {
-    bool keep = false;
-    if (i < n) {
-      const float val = ev[i];
-      const bool similar = fabsf(val - last) < last_sig_diff;
-      keep = (val != mask_signal) && (i == 0 || !similar);
-      if (keep) {
-        const uint32_t bits = __float_as_uint(val);
+  for (int i = tid; i < NE; i += T) {
+    const int c = i < n ? cnt[i] : K;
+    const bool keep = i < n && c > 0 && kept[c - 1] == i;
+    const bool emit = keep && c >= e;
+    uint32_t h = 0;
+    if (emit) {
+      // the pack: the e newest kept codes, the newest lowest; a code
+      // shifted to bit 32 or beyond has left the uint32
+      uint32_t acc = 0;
+      for (int j = 0; j < e; ++j) {
+        const int sh = quant_bit * j;
+        if (sh >= 32) break;
+        const uint32_t bits = __float_as_uint(val[kept[c - 1 - j]]);
         const uint32_t tq = ((bits >> 30) << lq) | ((bits >> (32 - q)) & mask_lq);
-        last = val;
-        acc = ((acc << quant_bit) | tq) & mask;
-        ++cnt;
-        // shift the ring left and append i; constant indices after
-        // unrolling keep it in registers
-#pragma unroll
-        for (int k = 0; k < RA_SKETCH_MAX_E - 1; ++k)
-          if (k < e - 1) ring[k] = ring[k + 1];
-#pragma unroll
-        for (int k = 0; k < RA_SKETCH_MAX_E; ++k)
-          if (k == e - 1) ring[k] = i;
+        acc |= tq << sh;
       }
+      h = ra_hash64_u32(acc & mask);
     }
-    const bool emit = keep && cnt >= e;
-    hashes[row + i] = emit ? (long long)ra_hash64_u32(acc) : 0LL;
+    hashes[row + i] = (long long)h;
     emit_out[row + i] = emit ? 1 : 0;
-    oldest_out[row + i] = ring[0];
-    cnt_out[row + i] = cnt;
+    oldest_out[row + i] = c >= e ? kept[c - e] : 0;
+    cnt_out[row + i] = c;
   }
 }
 
+// One launch for B reads. scratch is null when the 4 (NE + 1) words of a
+// block fit in shared memory (smem_bytes of them), else a device buffer
+// of B * 4 (NE + 1) int32.
 extern "C" int ra_sketch_scan(
     int device, const float* events, const int* n_events, int B, int NE, int e, int q,
-    int lq, long long* hashes, unsigned char* emit, int* oldest, int* cnt,
-    void* stream) {
+    int lq, int* scratch, long long smem_bytes, long long* hashes,
+    unsigned char* emit, int* oldest, int* cnt, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B > 0 && NE > 0) {
-    const int threads = 64;
-    ra_sketch_scan_kernel<<<(B + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
-        events, n_events, B, NE, e, q, lq, hashes, emit, oldest, cnt);
+  if (B <= 0 || NE <= 0) return (int)cudaGetLastError();
+  if (scratch) {
+    ra_sketch_scan_kernel<true><<<B, RA_SKETCH_THREADS, 0, (cudaStream_t)stream>>>(
+        events, n_events, NE, e, q, lq, scratch, hashes, emit, oldest, cnt);
+    return (int)cudaGetLastError();
   }
+  if (smem_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(ra_sketch_scan_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ra_sketch_scan_kernel<false><<<B, RA_SKETCH_THREADS, (size_t)smem_bytes,
+                                 (cudaStream_t)stream>>>(
+      events, n_events, NE, e, q, lq, nullptr, hashes, emit, oldest, cnt);
   return (int)cudaGetLastError();
 }

@@ -9,7 +9,8 @@ placements) and ``device`` (``stage1_impl="device", chain_impl="device"``).
 Per path: one warm pass, ``--passes`` timed passes (reads/s, each ending
 in ``torch.cuda.synchronize()``), then one pass under ``torch.profiler``:
 the device's busy share (the union of the intervals in which a kernel,
-copy or fill ran, over the pass wall) and device time per kernel name;
+copy or fill ran, over the pass wall) and device time per kernel name
+(the 12 longest and every kernel of the port);
 with ``--cprofile N``, one more pass under ``cProfile`` and the N
 functions with the most self time on the main thread (the host work the
 worker pool runs in C is not in it). Prints one JSON object per path,
@@ -102,8 +103,10 @@ def profile_path(name, idx, mo, reads, passes: int, top: int) -> dict:
             profiled_wall_ms=wall, device_busy_ms=busy,
             device_busy_share=busy / wall,
             phase_seconds=dict(eng.phase_times),
-            kernels_ms={k[:80]: v for k, v in sorted(
-                by_name.items(), key=lambda kv: -kv[1][0])[:12]},
+            # the 12 longest, and the port's own kernels however short
+            kernels_ms={k[:80]: v for n, (k, v) in enumerate(sorted(
+                by_name.items(), key=lambda kv: -kv[1][0]))
+                if n < 12 or "ra_" in k},
         )
         if top:
             out["host_top"] = _host_top(eng, reads, top)

@@ -19,7 +19,10 @@ semantics.
 :func:`_sketch_scan` is the plain PyTorch version of the sequential scan
 (the JAX package's ``lax.scan``); ``seeds/sketch_cuda.py`` holds the CUDA
 kernel and the wrapper that picks between the two by the tensor's
-device.
+device. :func:`_sketch_scan_jump_plain` is the kernel's formulation of
+the same function (jump pointers, the kept list by rank, then
+elementwise outputs) in plain PyTorch; no mapping path calls it, the
+tests hold it to :func:`_sketch_scan`.
 """
 
 from __future__ import annotations
@@ -118,6 +121,69 @@ def _sketch_scan(events: torch.Tensor, n_events: torch.Tensor, e: int,
     hashes = torch.where(emit, hash64_u32(acc_all), 0)
     newest = torch.arange(NE, device=dev).expand(B, NE)
     return hashes, emit, newest, oldest, cnts
+
+
+def _sketch_scan_jump_plain(events: torch.Tensor, n_events: torch.Tensor,
+                            e: int, q: int, lq: int):
+    """The outputs of :func:`_sketch_scan` without a step per slot, as the
+    CUDA kernel computes them. Which events are kept is the only
+    recurrence: ``nxt[j]`` is the first event after ``j`` that is kept
+    when ``j`` is the last kept one, and the kept list is the orbit of
+    the first non-masked event under ``nxt``. Rank ``r`` of the list is
+    reached by the binary digits of ``r`` over the doubled pointers
+    ``nxt^(2^k)``; count, ring, pack and hash of every slot then follow
+    from the list. Node ``NE`` stands for "none"."""
+    B, NE = events.shape
+    dev = events.device
+    quant_bit = lq + 2
+    nbits = quant_bit * e
+    mask = (1 << nbits) - 1 if nbits < 32 else M32
+    ev = events.to(torch.float32)
+    tq = quantize_u32(ev, q, lq)
+    n = n_events.to(torch.int64).clamp(0, NE)
+    slot = torch.arange(NE, device=dev)
+    newest = slot.expand(B, NE)
+    if B == 0 or NE == 0:
+        z = torch.zeros((B, NE), dtype=torch.int32, device=dev)
+        return (z.to(torch.int64), z.to(torch.bool), newest, z, z.clone())
+    thr = torch.tensor(LAST_SIG_DIFF, device=dev)
+    mask_sig = torch.tensor(RI_MASK_SIGNAL, device=dev)
+    # ok[b, j, i]: event i is kept when it follows the kept event j (the
+    # scan's own float test, so a NaN event is never similar)
+    differs = ~((ev[:, None, :] - ev[:, :, None]).abs() < thr)
+    ok = ((slot[None, :] > slot[:, None])[None]
+          & (slot[None, None, :] < n[:, None, None])
+          & (ev != mask_sig)[:, None, :] & differs)
+    nxt = torch.where(ok.any(dim=2), ok.to(torch.int8).argmax(dim=2), NE)
+    nxt = torch.cat([nxt, torch.full((B, 1), NE, device=dev)], dim=1)
+    # event 0 bypasses the similarity test; when it is the mask value the
+    # comparison value stays the mask value and nxt[0] is the first kept
+    start = torch.where(n > 0, torch.where(ev[:, 0] != mask_sig, 0, nxt[:, 0]),
+                        NE)
+    kept = start[:, None].expand(B, NE).clone()
+    level = nxt
+    for k in range(max(NE - 1, 1).bit_length()):
+        kept = torch.where((slot >> k & 1).bool()[None, :],
+                           level.gather(1, kept), kept)
+        level = level.gather(1, level)
+    flags = torch.zeros((B, NE + 1), dtype=torch.int64, device=dev)
+    flags.scatter_(1, kept, 1)
+    keep = flags[:, :NE].bool()
+    cnt = flags[:, :NE].cumsum(dim=1)
+    kept_pad = torch.cat(
+        [kept, torch.zeros((B, 1), dtype=torch.int64, device=dev)], dim=1)
+    oldest = torch.where(cnt >= e, kept_pad.gather(1, (cnt - e).clamp(min=0)), 0)
+    emit = keep & (cnt >= e)
+    # the pack: the e newest kept codes, the newest lowest; a code shifted
+    # to bit 32 or beyond has left the uint32
+    acc = torch.zeros((B, NE), dtype=torch.int64, device=dev)
+    for j in range(e):
+        if quant_bit * j >= 32:
+            break
+        pos = kept_pad.gather(1, (cnt - 1 - j).clamp(min=0)).clamp(max=NE - 1)
+        acc |= (tq.gather(1, pos) << (quant_bit * j)) & M32
+    hashes = torch.where(emit, hash64_u32(acc & mask), 0)
+    return hashes, emit, newest, oldest.to(torch.int32), cnt.to(torch.int32)
 
 
 def sketch_events_batch(events: torch.Tensor, n_events: torch.Tensor, *,

@@ -16,9 +16,16 @@ import torch
 from rawalign_tpu_torch.kernels import build
 from rawalign_tpu_torch.seeds import sketch
 
-#: the kernel keeps its ring of the last ``e`` kept positions in
-#: registers of this fixed size
+#: the widest seed the port takes (``e`` events a seed), as the JAX
+#: package's kernel
 MAX_E = 16
+#: shared memory a block may use on Hopper (bytes). A block keeps four
+#: rows of NE + 1 words there (the events, the jump pointers and then the
+#: kept count, the kept list, the 32-fold jump pointers), or in a device
+#: buffer when they do not fit
+MAX_SMEM = 232448
+#: bytes of the kernel's static shared memory, rounded up
+_STATIC_SMEM = 64
 
 launches = 0
 
@@ -28,7 +35,7 @@ def _entry():
     fn = build.load("sketch_scan").ra_sketch_scan
     p = ctypes.c_void_p
     i = ctypes.c_int
-    fn.argtypes = [i, p, p, i, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [i, p, p, i, i, i, i, i, p, ctypes.c_int64, p, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -59,10 +66,17 @@ def sketch_scan(events: torch.Tensor, n_events: torch.Tensor, *, e: int,
     oldest = torch.empty((B, NE), dtype=torch.int32, device=dev)
     cnt = torch.empty((B, NE), dtype=torch.int32, device=dev)
     if B and NE:
+        smem = 16 * (NE + 1)
+        scratch = None
+        if smem + _STATIC_SMEM > MAX_SMEM:
+            scratch = torch.empty(B * 4 * (NE + 1), dtype=torch.int32,
+                                  device=dev)
+            smem = 0
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry()(
             dev.index, events.data_ptr(), n_events.data_ptr(), B, NE, e, q,
-            lq, hashes.data_ptr(), emit.data_ptr(), oldest.data_ptr(),
+            lq, None if scratch is None else scratch.data_ptr(), smem,
+            hashes.data_ptr(), emit.data_ptr(), oldest.data_ptr(),
             cnt.data_ptr(), stream,
         )
         build.check(err, "ra_sketch_scan")

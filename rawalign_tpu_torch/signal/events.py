@@ -27,7 +27,10 @@ The sequential axes (samples, and events in the z-norm sums) are
 explicit loops vectorised over the batch, so this plain version gives
 the same bits on the CPU and on the card. ``signal/events_cuda.py``
 holds the CUDA kernel and the wrapper that picks between the two by
-the tensor's device.
+the tensor's device. :func:`_peaks_split_plain` is the kernel's
+formulation of the peak machine (one detector at a time, then an
+ordered compaction) in plain PyTorch; no mapping path calls it, the
+tests hold it to :func:`_peaks`.
 """
 
 from __future__ import annotations
@@ -155,6 +158,146 @@ def _peaks(t1: torch.Tensor, t2: torch.Tensor, length: torch.Tensor,
     present = flat >= 0
     order = torch.sort((~present).to(torch.int32), dim=1, stable=True).indices
     return flat.gather(1, order), present.sum(dim=1)
+
+
+def _peak_step(pos, val, valid, act, i, cv, thr: float, half: int,
+               peak_height: float):
+    """One sample (``i``: its index, a number or a tensor) of one detector
+    in select form, for every lane. Returns (fired peak or -1, pos, val,
+    valid, npos, nval): ``npos`` and ``nval`` are the peak position and
+    value after the update and before the fire."""
+    idle = pos < 0
+    up = cv > val
+    deeper = cv < val
+    rise = (cv - val) > peak_height
+    # no peak: follow the minimum, start a peak once the value rises
+    # peak_height above it; inside a peak: follow the maximum
+    take = act & torch.where(idle, deeper | rise, up)
+    mark = act & torch.where(idle, ~deeper & rise, up)
+    nval = torch.where(take, cv, val)
+    npos = torch.where(mark, i, pos)
+    busy = act & ~idle
+    valid = valid | (busy & ((nval - cv) > peak_height) & (nval > thr))
+    fire = busy & valid & ((i - npos) > half)
+    return (torch.where(fire, npos, -1), torch.where(fire, -1, npos),
+            torch.where(fire, cv, nval), valid & ~fire, npos, nval)
+
+
+def _detector_run(long: bool, state, first, n: int, stop, t, record, length,
+                  thr: float, half: int, peak_height: float, w1: int):
+    """``n`` samples of one detector on (B, C) lanes: lane (b, c) steps
+    samples ``first[c] .. first[c] + n - 1`` of row b, those in
+    ``[1, stop[c])`` and below the row's length. ``state`` is (pos, val,
+    valid, masked), each (B, C); it leaves as the state before sample
+    ``stop`` (a mask that has ended is forgotten, so that equal behaviour
+    is equal state). The long detector reads ``record`` (B, steps): where
+    the short one masked it, it starts over before it sees the sample.
+    Returns (state, peaks fired (B, C, n) or -1, the short detector's
+    record of these samples (B, C, n))."""
+    pos, val, valid, masked = state
+    B, C = pos.shape
+    fired = torch.full((B, C, n), -1, dtype=torch.int64, device=t.device)
+    rec = torch.full((B, C, n), -1, dtype=torch.int64, device=t.device)
+    for k in range(n):
+        i = (first + k)[None, :]
+        on = (i >= 1) & (i < stop[None, :]) & (i < length[:, None])
+        at = i.clamp(0, t.shape[1] - 1).expand(B, C)
+        cv = t.gather(1, at)
+        act = on
+        if long:
+            r = record.gather(1, at)
+            dom = on & (r >= 0)
+            masked = torch.where(dom, r, masked)
+            pos = torch.where(dom, -1, pos)
+            val = torch.where(dom, FLT_MAX, val)
+            valid = valid & ~dom
+            act = on & (masked < i)
+        inside = on & (pos >= 0)
+        fired[:, :, k], pos, val, valid, npos, nval = _peak_step(
+            pos, val, valid, act, i, cv, thr, half, peak_height)
+        if not long:
+            rec[:, :, k] = torch.where(inside & (nval > thr), npos + w1, -1)
+    masked = torch.where(masked >= stop[None, :], masked, -1)
+    return (pos, val, valid, masked), fired, rec
+
+
+def _same_state(a, b) -> torch.Tensor:
+    """Lanes whose two states are equal bit for bit."""
+    return ((a[0] == b[0]) & (a[1].view(torch.int32) == b[1].view(torch.int32))
+            & (a[2] == b[2]) & (a[3] == b[3]))
+
+
+def _detector_chunks(long: bool, t, record, length, steps: int, chunk: int,
+                     thr: float, half: int, peak_height: float, w1: int):
+    """One detector over samples 1 .. steps-1 in chunks of ``chunk``
+    samples, as the CUDA kernel runs it. Every chunk is a lane. In the
+    first round every chunk runs from the start state, which is right for
+    the first chunk only. While any chunk did not start from the state
+    the chunk before it ended in, all such chunks run again, each from
+    that state (the first of them then started right, so the rounds end).
+    Returns (peaks fired per sample (B, steps) or -1, record (B, steps))."""
+    B = t.shape[0]
+    dev = t.device
+    fired_row = torch.full((B, steps), -1, dtype=torch.int64, device=dev)
+    rec_row = fired_row.clone()
+    if steps < 2:
+        return fired_row, rec_row
+    C = -(-(steps - 1) // chunk)
+    lo = 1 + torch.arange(C, device=dev) * chunk
+    hi = (lo + chunk).clamp(max=steps)
+    args = (t, record, length, thr, half, peak_height, w1)
+    begun = (torch.full((B, C), -1, dtype=torch.int64, device=dev),
+             torch.full((B, C), FLT_MAX, dtype=torch.float32, device=dev),
+             torch.zeros((B, C), dtype=torch.bool, device=dev),
+             torch.full((B, C), -1, dtype=torch.int64, device=dev))
+    ended, fired, rec = _detector_run(long, begun, lo, chunk, hi, *args)
+    while True:
+        before = tuple(torch.cat([b[:, :1], e[:, :-1]], dim=1)
+                       for b, e in zip(begun, ended))
+        # a row has no chunks past its length
+        wrong = ~_same_state(begun, before) & (lo[None, :] < length[:, None])
+        if not bool(wrong.any()):
+            break
+        again, fired_a, rec_a = _detector_run(long, before, lo, chunk, hi, *args)
+        begun = tuple(torch.where(wrong, x, y) for x, y in zip(before, begun))
+        ended = tuple(torch.where(wrong, x, y) for x, y in zip(again, ended))
+        fired = torch.where(wrong[:, :, None], fired_a, fired)
+        rec = torch.where(wrong[:, :, None], rec_a, rec)
+    fired_row[:, 1:] = fired.reshape(B, C * chunk)[:, : steps - 1]
+    rec_row[:, 1:] = rec.reshape(B, C * chunk)[:, : steps - 1]
+    return fired_row, rec_row
+
+
+def _peaks_split_plain(t1: torch.Tensor, t2: torch.Tensor,
+                       length: torch.Tensor, steps: int, thresholds, windows,
+                       peak_height: float, chunk: int | None = None):
+    """The outputs of :func:`_peaks`, one detector at a time, as the CUDA
+    kernel runs them. The short detector never reads the long one's
+    state: it runs alone and records, per sample, the end of the mask it
+    lays on the long detector (its peak + w1 while it is inside a peak
+    above its threshold, else -1). The long detector then runs from that
+    record alone. Both skip sample 0 (their mask ends start at 0). Each
+    leaves its peak at the sample where it fires; the list in emission
+    order (sample order, the short detector first at one sample) is a
+    prefix count over the two rows. With ``chunk``, each detector runs in
+    chunks of that many samples, in rounds (:func:`_detector_chunks`);
+    without, in one piece."""
+    B = t1.shape[0]
+    dev = t1.device
+    chunk = chunk or max(steps, 1)
+    short, record = _detector_chunks(
+        False, t1[:, :steps], None, length, steps, chunk,
+        thresholds[0], windows[0] // 2, peak_height, windows[0])
+    long, _ = _detector_chunks(
+        True, t2[:, :steps], record, length, steps, chunk,
+        thresholds[1], windows[1] // 2, peak_height, windows[0])
+    flat = torch.stack([short, long], dim=2).reshape(B, 2 * steps)
+    present = flat >= 0
+    n_peaks = present.sum(dim=1)
+    rank = torch.where(present, present.cumsum(dim=1) - 1, 2 * steps)
+    peaks = torch.full((B, 2 * steps + 1), -1, dtype=torch.int64, device=dev)
+    peaks.scatter_(1, rank, flat)
+    return peaks[:, : 2 * steps], n_peaks
 
 
 def _event_means(peaks: torch.Tensor, n_peaks: torch.Tensor,

@@ -4,7 +4,9 @@ Port of rawalign_tpu/signal/events_pallas.py (with the compaction, event
 means and z-norm of rawalign_tpu/signal/events.py). :func:`detect_events`
 runs the kernel on CUDA tensors and the plain PyTorch version
 (``signal/events.py:detect_events_plain``) on CPU tensors; any other
-device raises. ``launches`` counts kernel launches.
+device raises. ``launches`` counts kernel launches; :func:`reruns` reads
+the kernel's own count of the peak machine's chunks that ran again, and
+of the rounds of such runs.
 """
 
 from __future__ import annotations
@@ -17,11 +19,17 @@ import torch
 from rawalign_tpu_torch.kernels import build
 from rawalign_tpu_torch.signal import events
 
-#: shared memory a block may use on Hopper (bytes); a block keeps
-#: 4 (L + 1) float words there, or in a device buffer when they do not fit
+#: shared memory a block may use on Hopper (bytes). A block keeps five
+#: rows of ``_row_words(L)`` floats there (prefix sums; sums of squares,
+#: then the short detector's record and the peak list; the staged
+#: samples, then the short t row and the long detector's peaks; the long
+#: t row, then the event means; the short detector's peaks), or in a
+#: device buffer when they do not fit
 MAX_SMEM = 232448
-#: bytes of the kernel's static shared memory (event count, mean, std)
-_STATIC_SMEM = 64
+#: bytes of the kernel's static shared memory, rounded up (the end state
+#: of each of a detector's 256 chunks, per-warp peak counts, the two
+#: z-norm sums)
+_STATIC_SMEM = 6144
 
 launches = 0
 
@@ -36,6 +44,23 @@ def _entry():
     fn.argtypes = [i, p, i64, p, i, i, i, i, f, f, f, i, p, i64, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def reruns(device: torch.device, reset: bool = True) -> tuple[int, int]:
+    """(chunks of the peak machine run again, rounds of such runs) over
+    all launches on ``device`` since the last reset, summed over rows and
+    over both detectors. Waits for the device."""
+    fn = build.load("event_detect").ra_event_reruns
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_uint64 * 2)()
+    build.check(fn(device.index, out, int(reset)), "ra_event_reruns")
+    return int(out[0]), int(out[1])
+
+
+def _row_words(L: int) -> int:
+    """Words of one scratch row: L + 1 rounded up to a multiple of 4."""
+    return (L + 4) & ~3
 
 
 def detect_events(sig: torch.Tensor, length: torch.Tensor, *, w1: int,
@@ -67,10 +92,10 @@ def detect_events(sig: torch.Tensor, length: torch.Tensor, *, w1: int,
     n_events = torch.empty(B, dtype=torch.int32, device=dev)
     n_dropped = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        smem = 16 * (L + 1)
+        smem = 20 * _row_words(L)
         scratch = None
         if smem + _STATIC_SMEM > MAX_SMEM:
-            scratch = torch.empty(B * 4 * (L + 1), dtype=torch.float32,
+            scratch = torch.empty(B * 5 * _row_words(L), dtype=torch.float32,
                                   device=dev)
             smem = 0
         stream = torch.cuda.current_stream(dev).cuda_stream

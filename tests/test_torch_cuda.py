@@ -48,24 +48,51 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("e", [1, 5, 6, 7, 10, 16])
-def test_sketch_kernel_matches_plain(dev, e):
-    rng = np.random.default_rng(e)
-    B, NE = 40, 700
+def _sketch_rows(rng, B, NE, e):
+    """Noisy rows with a run of identical events and masked events, and
+    the awkward ones: n_events of 0, 1, e - 1, e and NE; event 0 masked
+    (alone and at the head of a masked run); a row that is one masked run;
+    a whole row within 0.3 of its first event; NaN events, first and
+    inside."""
+    mask = np.float32(3.402823466e32)
     ev = rng.normal(0.0, 1.0, (B, NE)).astype(np.float32)
-    ev[:, 100:140] = ev[:, 100:101]  # a run of identical events
-    ev[rng.random((B, NE)) < 0.02] = np.float32(3.402823466e32)
+    if NE > 140:
+        ev[:, 100:140] = ev[:, 100:101]
+    ev[rng.random((B, NE)) < 0.02] = mask
     n_ev = rng.integers(0, NE + 1, B).astype(np.int32)
-    n_ev[:3] = [0, 1, NE]
+    special = [0, 1, max(e - 1, 0), e, NE, NE, NE, NE, NE, NE]
+    for b, n in enumerate(special[:B]):
+        n_ev[b] = min(n, NE)
+    if B >= 10:
+        ev[5, 0] = mask
+        ev[6, : NE // 3] = mask
+        ev[7, :] = mask
+        ev[8, :] = 0.5 + rng.uniform(-0.14, 0.14, NE).astype(np.float32)
+        ev[9, 0] = np.nan
+        ev[9, rng.integers(0, NE, 4)] = np.nan
+    return ev, n_ev
+
+
+@pytest.mark.parametrize("e,q,lq,B,NE", [
+    (1, 9, 3, 40, 700), (5, 9, 3, 40, 700), (6, 9, 3, 40, 700),
+    (7, 9, 3, 40, 700), (10, 9, 3, 40, 700), (16, 9, 3, 40, 700),
+    (16, 9, 0, 40, 700),  # quant_bit * e = 32 exactly
+    (6, 12, 5, 40, 333),  # 42 bits: the pack overflows the uint32
+    (6, 9, 3, 1, 2048), (6, 9, 3, 200, 333), (7, 9, 3, 12, 33),
+    (6, 9, 3, 10, 1), (6, 9, 3, 10, 20000),  # rows beyond shared memory
+])
+def test_sketch_kernel_matches_plain(dev, e, q, lq, B, NE):
+    rng = np.random.default_rng(e + NE)
+    ev, n_ev = _sketch_rows(rng, B, NE, e)
     ev_d = torch.from_numpy(ev).to(dev)
     n_d = torch.from_numpy(n_ev).to(dev)
     before = sketch_cuda.launches
-    got = sketch_cuda.sketch_scan(ev_d, n_d, e=e, q=9, lq=3)
-    want = sketch._sketch_scan(ev_d, n_d, e, 9, 3)
+    got = sketch_cuda.sketch_scan(ev_d, n_d, e=e, q=q, lq=lq)
+    want = sketch._sketch_scan(ev_d, n_d, e, q, lq)
     torch.cuda.synchronize()
     assert sketch_cuda.launches == before + 1
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def _tiles(rng, lref, hist_shape, n_tiles, max_len, full_fill):
@@ -115,20 +142,43 @@ def test_dtw_kernel_matches_plain(dev, full_fill, max_len, n_tiles):
     assert torch.equal(got, want)
 
 
-def _event_rows(rng, L):
+def _cut_at_a_short_peak(row):
+    """``row`` cut three samples after a short-detector peak above its
+    threshold, so that the short detector masks the long one up to and at
+    the last sample, where it fires."""
+    w1 = OPT.window_length1
+    sig = torch.from_numpy(row)[None, :]
+    n = torch.tensor([row.size])
+    ps, pss = events._prefix_sums(sig, n, row.size)
+    t1 = events._tstat(ps, pss, n, w1)[0]
+    above = torch.nonzero(t1[: row.size - w1] > 2 * OPT.threshold1)[:, 0]
+    p = int(above[-1])
+    while t1[p + 1] > t1[p]:  # climb to the local maximum
+        p += 1
+    return row[: p + w1]
+
+
+def _event_rows(rng, L, n_noisy=24, edges=True):
     """Synthetic noisy steps of varying length plus the edge cases: an
-    empty row, a constant row, a one-event row (NaN z-norm), a row too
-    short for the long window."""
+    empty row, a constant row, a one-event row (NaN z-norm), rows of 9,
+    2*w2 - 1 and 2*w2 samples (too short, and just long enough, for the
+    long window) and a row in which the short detector masks the long one
+    at the last sample."""
     rows = []
-    for _ in range(24):
+    for _ in range(n_noisy):
         n = int(rng.integers(L // 2, L + 1))
         levels = rng.normal(95.0, 12.0, n // 8 + 1)
         rows.append((np.repeat(levels, 8)[:n]
                      + rng.normal(0.0, 1.5, n)).astype(np.float32))
     step = np.concatenate([np.full(L // 4, 90.0), np.full(L // 4, 110.0)])
-    rows += [np.zeros(0, np.float32), np.full(L // 2, 95.0, np.float32),
-             step.astype(np.float32),
-             rng.normal(95.0, 10.0, 9).astype(np.float32)]
+    w2 = OPT.window_length2
+    if edges:
+        rows += [np.zeros(0, np.float32), np.full(L // 2, 95.0, np.float32),
+                 step.astype(np.float32),
+                 rng.normal(95.0, 10.0, 9).astype(np.float32),
+                 rng.normal(95.0, 10.0, 2 * w2 - 1).astype(np.float32),
+                 rng.normal(95.0, 10.0, 2 * w2).astype(np.float32),
+                 _cut_at_a_short_peak(rows[0])]
     sig = np.zeros((len(rows), L), np.float32)
     lens = np.zeros(len(rows), np.int32)
     for i, r in enumerate(rows):
@@ -137,12 +187,16 @@ def _event_rows(rng, L):
     return rows, sig, lens
 
 
-@pytest.mark.parametrize("L,max_events", [(4000, 2048), (997, 32), (20000, 4096)])
-def test_event_kernel_matches_plain_and_native(dev, L, max_events):
+@pytest.mark.parametrize("L,max_events,n_noisy,edges", [
+    (4000, 2048, 24, True), (997, 32, 24, True), (20000, 4096, 24, True),
+    (4001, 2048, 1, False), (1531, 2048, 193, True)])
+def test_event_kernel_matches_plain_and_native(dev, L, max_events, n_noisy,
+                                               edges):
     """L = 20000 exceeds shared memory: the block's scratch lives in a
-    device buffer."""
+    device buffer. One row alone, and 200 rows of a length that is no
+    multiple of the warp or the block."""
     rng = np.random.default_rng(L)
-    rows, sig, lens = _event_rows(rng, L)
+    rows, sig, lens = _event_rows(rng, L, n_noisy, edges)
     sig_d = torch.from_numpy(sig).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
     before = events_cuda.launches
@@ -161,6 +215,42 @@ def test_event_kernel_matches_plain_and_native(dev, L, max_events):
         assert n == min(ev.size, max_events)
         np.testing.assert_array_equal(values[i, :n], ev[:max_events])
     assert int(got.n_events.sum()) > 0
+
+
+def test_event_kernel_runs_again_the_chunks_that_started_wrong(dev):
+    """The peak machine's chunks all start from a guess and run again, in
+    rounds, until each started from the end state of the one before it:
+    the kernel's own count shows that rows of steps take a few rounds,
+    white noise more, a constant row none, and every result is the plain
+    detector's, bit for bit."""
+    rng = np.random.default_rng(5)
+    _rows, sig, lens = _event_rows(rng, 1531, 6, True)
+    B = 8
+    noise = rng.normal(95.0, 15.0, (B, 4000)).astype(np.float32)
+    flat = np.full((B, 4000), 95.0, np.float32)
+    full = np.full(B, 4000, np.int32)
+    seen = {}
+    for label, s, n in (("steps", sig, lens), ("noise", noise, full),
+                        ("constant", flat, full)):
+        sig_d = torch.from_numpy(s).to(dev)
+        lens_d = torch.from_numpy(n).to(dev)
+        events_cuda.reruns(dev)
+        got = events_cuda.detect_events(sig_d, lens_d, max_events=2048, **EV_KW)
+        seen[label] = events_cuda.reruns(dev)
+        want = events.detect_events_plain(sig_d, lens_d, max_events=2048,
+                                          **EV_KW)
+        assert torch.equal(got.n_events, want.n_events)
+        assert torch.equal(got.n_dropped, want.n_dropped)
+        assert _same(got.values, want.values)
+    assert events_cuda.reruns(dev) == (0, 0)
+    n_chunks = -(-3999 // 17)
+    # (chunks run again, rounds), over all rows and both detectors
+    assert 0 < seen["steps"][1] <= 6 * 2 * len(lens)
+    assert seen["steps"][1] < seen["noise"][1] < 2 * B * n_chunks // 4
+    assert seen["noise"][0] >= 2 * B * (n_chunks - 1) // 2
+    # a constant row's t is 0: every chunk ends in the state (no peak,
+    # minimum 0), but starts from (no peak, FLT_MAX): one more round
+    assert seen["constant"] == (2 * B * (n_chunks - 1), 2 * B)
 
 
 def _chain_rows(rng, B, A, interleave=False):
