@@ -20,12 +20,17 @@ Phases (each raises on failure; the script then exits non-zero):
    scan at B=32, NE=2048, e=6 (and on a batch of awkward rows: masked
    starts and runs, a row of similar events, NaN events, 0, 1, e-1 and e
    events, a seed wider than the uint32 pack), the banded DTW on the
-   kept round's tiles and on a synthetic tile mix up to 2048 — and timed
-   beside them; then
+   kept round's tiles and on a synthetic tile mix up to 2048, one launch
+   a round, against the per-class plain version, the plain round and
+   native (each class's tile count and longest n logged, and the
+   recurrence floor: the longest tile's n-1 iterations at the time per
+   iteration it takes alone) — and timed beside them; then
    the launch counters are zeroed and a timed pass maps every read
-   again. It fails if either kernel was not launched in that pass or no
-   DTW tile ran on the card, and unless the first 16 reads' PAF lines
-   equal the golden engine's byte for byte (mt:f stripped);
+   again. It fails if either kernel was not launched in that pass, if
+   the DTW kernel took other than one launch in each round that had
+   device tiles, or no DTW tile ran on the card, and unless the first 16
+   reads' PAF lines equal the golden engine's byte for byte (mt:f
+   stripped);
 5. the all-device path (``stage1_impl="device", chain_impl="device"``:
    device events, sketch and lookup, host expansion, device chain DP,
    Python round tail, device DTW) on the same reads: a warm pass (whose
@@ -40,7 +45,8 @@ Phases (each raises on failure; the script then exits non-zero):
    and on two synthetic rounds of 16384 anchors (W=64, segments sorted;
    W=2048, segments interleaved) against both plain versions (the plain
    DP on the card, the warp-form scan on the host CPU) and
-   ``native.chain_dp``; then the counters are zeroed and a timed pass
+   ``native.chain_dp``, and at W=12000 (its ring in device memory)
+   against the plain DP and native; then the counters are zeroed and a timed pass
    maps every read. It fails unless
    all four kernels launched in that pass and its 256 PAF lines equal
    the hybrid pass's byte for byte (mt:f stripped), the first 16 also
@@ -292,21 +298,28 @@ def check_sketch(ds, mo, io, device, reps: int = 20) -> dict:
 
 
 def _dtw_round(ref, hist, da, device_max_n, reps):
-    """Kernel against the plain version on one round of descriptors."""
+    """The one-launch kernel on one round of descriptors: timed, and held
+    to the per-class plain version (the JAX kernel's formulation) and the
+    plain round (the kernel's) on the card. Returns a dict."""
     import numpy as np
     import torch
 
     from rawalign_tpu_torch import runtime
-    from rawalign_tpu_torch.map import dtw, tiles
+    from rawalign_tpu_torch.map import dtw, dtw_cuda, tiles
 
     cols = [da[:, k].astype(np.int32) for k in range(6)]
     small = (cols[1] <= device_max_n) & (cols[3] <= device_max_n)
     order, descs, batches = tiles.class_batches(
         *cols, np.nonzero(small)[0], device_max_n=device_max_n
     )
+    jobs, block_w, stage = tiles.work_list(descs)
     descs_d = runtime.put(descs, ref.device)
+    jobs_d = runtime.put(jobs, ref.device)
 
-    def plain():
+    def kernel(d=descs_d, j=jobs_d, w=block_w, s=stage):
+        return dtw_cuda.dtw_banded_round(ref, hist, d, j, block_w=w, stage=s)
+
+    def per_class():
         return torch.cat([
             dtw.dtw_banded_indexed(
                 ref, hist, descs_d[:, c.start : c.start + c.count], dpw=c.dpw
@@ -314,52 +327,82 @@ def _dtw_round(ref, hist, da, device_max_n, reps):
             for c in batches
         ])
 
-    ms, got = cuda_ms(lambda: tiles.run_classes(ref, hist, descs_d, batches), reps)
-    plain_ms, want = cuda_ms(plain, 1)
-    if not torch.equal(got, want):
-        bad = int((got != want).sum())
-        raise RuntimeError(f"DTW kernel disagrees with the plain version on "
-                           f"{bad} of {got.numel()} tiles")
+    before = dtw_cuda.launches
+    got = kernel()
+    torch.cuda.synchronize()
+    if dtw_cuda.launches != before + 1:
+        raise RuntimeError("the DTW round took more than one launch")
+    ms, got = cuda_ms(kernel, reps)
+    plain_ms, want = cuda_ms(per_class, 1)
+    for what, ref_costs in (("the per-class plain version", want),
+                            ("the plain round", dtw.dtw_banded_round(ref, hist, descs_d))):
+        if not torch.equal(got, ref_costs):
+            bad = int((got != ref_costs).sum())
+            raise RuntimeError(f"DTW kernel disagrees with {what} on {bad} of "
+                               f"{got.numel()} tiles")
     err = float((got - want).abs().max()) if got.numel() else 0.0
     # the bound: both sequences of every tile, its descriptor and its cost;
     # DTW_OPS per cell of the band (the engine's dtw_cells count)
     rows = da[order]
     moved = 4 * int(rows[:, 1].sum() + rows[:, 3].sum()) + nbytes(descs_d, got)
     cells = int((rows[:, 1] * np.minimum(2 * rows[:, 4] + 1, rows[:, 3])).sum())
-    return ms, plain_ms, err, order, got, batches, bound(moved, DTW_OPS * cells)
+    n = descs[2]
+    classes = "; ".join(
+        f"{c.max_n}/{'even' if descs[6, c.start] > descs[7, c.start] else 'odd'}: "
+        f"{c.count} tiles, longest n {int(n[c.start : c.start + c.count].max())}"
+        for c in batches)
+    # the recurrence floor: the longest tile's n-1 dependent iterations at
+    # the time per iteration that tile takes alone (its launch less that of
+    # the same descriptor cut to 1x1, which runs no iteration, over n-1)
+    longest = int(np.argmax(n))
+    alone = {}
+    for key in ("longest", "1x1"):
+        d1 = np.ascontiguousarray(descs[:, longest : longest + 1])
+        if key == "1x1":
+            d1[2] = d1[5] = 1
+        j1, w1, s1 = tiles.work_list(d1)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        args = (runtime.put(d1, ref.device), runtime.put(j1, ref.device), w1, s1)
+        kernel(*args)
+        a.record()
+        for _ in range(20):
+            kernel(*args)
+        b.record()
+        torch.cuda.synchronize()
+        alone[key] = a.elapsed_time(b) / 20
+    iters = max(int(n[longest]) - 1, 1)
+    per_it_ns = (alone["longest"] - alone["1x1"]) / iters * 1e6
+    return dict(ms=ms, plain_ms=plain_ms, err=err, order=order, got=got,
+                batches=batches, jobs=jobs, bound=bound(moved, DTW_OPS * cells),
+                classes=classes, longest_n=int(n[longest]),
+                longest_width=int(max(descs[6, longest], descs[7, longest]) + 2),
+                alone_ms=alone["longest"], per_it_ns=per_it_ns,
+                floor_ms=iters * per_it_ns * 1e-6)
 
 
-def check_dtw(engine, captured, device, reps: int = 10) -> dict:
+def _dtw_log(label: str, r: dict) -> None:
     import numpy as np
-    import torch
 
-    from rawalign_tpu_torch import native
+    kinds = {int(k): int(c) for k, c in zip(*np.unique(r["jobs"][:, 0],
+                                                        return_counts=True))}
+    log(f"[dtw] {label}: {r['order'].size} tiles, {len(r['batches'])} classes "
+        f"(class/parity: tile count, longest n) {r['classes']}")
+    log(f"[dtw] {label}: one launch of {r['jobs'].shape[0]} blocks (jobs by "
+        f"lane width K, 0 = block tile: {kinds}): kernel {r['ms']:.4f} ms, "
+        f"per-class plain {r['plain_ms']:.2f} ms, bit-identical to both plain "
+        f"versions and native; bound {r['bound'][0]:.6f} ms ({r['bound'][1]}); "
+        f"longest tile n={r['longest_n']} ({r['longest_width']} slots) alone "
+        f"{r['alone_ms']:.4f} ms, {r['per_it_ns']:.2f} ns per iteration, "
+        f"recurrence floor {r['floor_ms']:.4f} ms")
 
-    da, hist = captured
-    ref = engine._ref_cat_dev
-    ms, plain_ms, err, order, got, batches, (bms, by) = _dtw_round(
-        ref, hist, da, engine.dtw_device_max_n, reps
-    )
-    # the same tiles through the native host library: bit-identical too
-    pool = np.concatenate([engine._ref_cat_host, hist.cpu().numpy().reshape(-1)])
-    pairs = [
-        (pool[a : a + n], pool[b : b + m], int(r), bool(x))
-        for a, n, b, m, r, x in da[order]
-    ]
-    if not np.array_equal(got.cpu().numpy(), native.dtw_banded_batch(pairs)):
-        raise RuntimeError("DTW kernel disagrees with native.dtw_banded_batch")
-    log(f"[dtw] first round: {order.size} tiles in {len(batches)} classes "
-        f"(max_n {max(c.max_n for c in batches)}, dpw "
-        f"{sorted({c.dpw for c in batches})}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.2f} ms, bit-identical to plain and native; bound "
-        f"{bms:.6f} ms ({by})")
 
-    # synthetic mix through every size class up to 2048
-    rng = np.random.default_rng(1)
-    lref = 1 << 20
-    syn_ref = torch.from_numpy(rng.normal(0, 1, lref).astype(np.float32)).to(device)
-    syn_hist = torch.from_numpy(
-        rng.normal(0, 1, (4, 4096)).astype(np.float32)).to(device)
+def _synthetic_dtw_rows(rng, lref):
+    """N_SYNTH tiles through every size class up to SYNTH_MAX_LEN, read
+    side and reference side as long as each other within -30%/+40%, radius
+    10% of the read, both parities, exclude_last on and off."""
+    import numpy as np
+
     rows = []
     for _ in range(N_SYNTH):
         ql = int(rng.integers(1, SYNTH_MAX_LEN + 1))
@@ -369,11 +412,42 @@ def check_dtw(engine, captured, device, reps: int = 10) -> dict:
         r = max(1, int(ql * 0.10))
         x = int(rng.integers(0, 2))
         rows.append((t0, tl, q0, ql, r, x) if tl > ql else (q0, ql, t0, tl, r, x))
-    syn = _dtw_round(syn_ref, syn_hist, np.asarray(rows, np.int64), 2048, 3)
-    log(f"[dtw] synthetic mix: {N_SYNTH} tiles up to {SYNTH_MAX_LEN} in {len(syn[5])} classes: "
-        f"kernel {syn[0]:.4f} ms, plain {syn[1]:.2f} ms, bit-identical")
-    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=max(err, syn[2]),
-                bound_ms=bms, bound_by=by)
+    return np.asarray(rows, np.int64)
+
+
+def check_dtw(engine, captured, device, reps: int = 10) -> dict:
+    import numpy as np
+    import torch
+
+    from rawalign_tpu_torch import native
+
+    def vs_native(label, ref_host, hist, da, r):
+        pool = np.concatenate([ref_host, hist.cpu().numpy().reshape(-1)])
+        pairs = [
+            (pool[a : a + n], pool[b : b + m], int(rad), bool(x))
+            for a, n, b, m, rad, x in da[r["order"]]
+        ]
+        if not np.array_equal(r["got"].cpu().numpy(), native.dtw_banded_batch(pairs)):
+            raise RuntimeError(f"DTW kernel disagrees with "
+                               f"native.dtw_banded_batch ({label})")
+
+    da, hist = captured
+    r = _dtw_round(engine._ref_cat_dev, hist, da, engine.dtw_device_max_n, reps)
+    vs_native("first round", engine._ref_cat_host, hist, da, r)
+    _dtw_log("first round", r)
+
+    rng = np.random.default_rng(1)
+    lref = 1 << 20
+    syn_ref_host = rng.normal(0, 1, lref).astype(np.float32)
+    syn_ref = torch.from_numpy(syn_ref_host).to(device)
+    syn_hist = torch.from_numpy(
+        rng.normal(0, 1, (4, 4096)).astype(np.float32)).to(device)
+    syn_da = _synthetic_dtw_rows(rng, lref)
+    syn = _dtw_round(syn_ref, syn_hist, syn_da, 2048, 3)
+    vs_native("synthetic mix", syn_ref_host, syn_hist, syn_da, syn)
+    _dtw_log(f"synthetic mix up to {SYNTH_MAX_LEN}", syn)
+    return dict(ms=r["ms"], plain_ms=r["plain_ms"], max_abs_err=max(r["err"], syn["err"]),
+                bound_ms=r["bound"][0], bound_by=r["bound"][1])
 
 
 def _same(a, b) -> bool:
@@ -558,12 +632,14 @@ def check_events(ds, mo, device, reps: int = 20) -> dict:
                 bound_by=by)
 
 
-def _chain_vs(packed, a, device, window, kw, reps: int, label: str) -> dict:
+def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
+              scan: bool = True) -> dict:
     """Chain kernel on one packed round (B, 3a+1): timed, and held bit for
     bit to both plain versions and to ``native.chain_dp``. The plain DP
     runs on the card; the warp-form scan runs on the host CPU (the same
     arithmetic; on the card each of its per-chunk steps is a dozen
-    launches) and counts the predecessor slots the serial loop visits."""
+    launches) and counts the predecessor slots the serial loop visits.
+    Without ``scan`` the scan, its count and the bound are left out."""
     import numpy as np
     import torch
 
@@ -578,11 +654,14 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str) -> dict:
     kw = dict(window=window, **kw)
     ms, got = cuda_ms(lambda: chain_cuda.chain_dp(*d, **kw), reps)
     plain_ms, want = cuda_ms(lambda: chain.chain_dp_plain(*d, **kw), 0)
+    checks = [("chain_dp_plain", want)]
     visited = torch.zeros(n.size, dtype=torch.int64)
     t0 = time.perf_counter()
-    scan = chain.chain_dp_scan_plain(*host, visited=visited, **kw)
+    if scan:
+        checks.append(("chain_dp_scan_plain", chain.chain_dp_scan_plain(
+            *host, visited=visited, **kw)))
     scan_s = time.perf_counter() - t0
-    for what, ref in (("chain_dp_plain", want), ("chain_dp_scan_plain", scan)):
+    for what, ref in checks:
         if not (torch.equal(got.scores.cpu(), ref.scores.cpu())
                 and torch.equal(got.preds.cpu(), ref.preds.cpu())):
             raise RuntimeError(f"chain kernel disagrees with {what} ({label})")
@@ -598,12 +677,15 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str) -> dict:
     slots = int(visited.sum())
     bound_ms, bound_by = bound(nbytes, CHAIN_OPS * slots)
     nmax = int(n.max())
-    log(f"[chain] {label}: B={B} A={a} (max {nmax} anchors) W={window}: kernel "
-        f"{ms:.4f} ms ({ms * 1e3 / max(nmax, 1):.4f} us per anchor of the "
-        f"widest read), plain {plain_ms:.2f} ms on the card, scan "
-        f"{scan_s:.1f} s on the CPU; {slots} slots visited, bound "
-        f"{bound_ms:.6f} ms ({bound_by}); bit-identical to both plain "
-        "versions and native")
+    ring = "shared memory" if 16 * (1 << (min(window, a) + 31).bit_length()) \
+        <= chain_cuda.MAX_SMEM else "device memory"
+    log(f"[chain] {label}: B={B} A={a} (max {nmax} anchors) W={window}, ring "
+        f"in {ring}: kernel {ms:.4f} ms ({ms * 1e3 / max(nmax, 1):.4f} us per "
+        f"anchor of the widest read), plain {plain_ms:.2f} ms on the card, "
+        + (f"scan {scan_s:.1f} s on the CPU; {slots} slots visited, bound "
+           f"{bound_ms:.6f} ms ({bound_by}); bit-identical to both plain "
+           "versions and native" if scan else
+           "bit-identical to chain_dp_plain and native"))
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=float(
         (got.scores - want.scores).abs().max()), bound_ms=bound_ms,
         bound_by=bound_by, widest=nmax)
@@ -649,6 +731,9 @@ def check_chain(engine, captured, device, reps: int = 10) -> dict:
     dense = _chain_round(rng, 32, A, 8, 400_000, True)
     rec["w2048_ms"] = _chain_vs(dense, A, device, 2048, kw, 3,
                                 "synthetic round, interleaved")["ms"]
+    # a window beyond the shared-memory ring (min(W, A) > 8160)
+    _chain_vs(dense[:8], A, device, 12_000, kw, 3,
+              "synthetic round, interleaved, wide window", scan=False)
     return rec
 
 
@@ -669,19 +754,32 @@ def main() -> int:
 
 def timed_pass(engine, reads, counters, label: str, smi: str):
     """Map every read once with the launch counters zeroed just before;
-    returns (results, launches read just after)."""
+    returns (results, launches read just after). The DTW kernel must
+    take one launch for each round that sends it tiles."""
     import torch
 
     for k in engine.counters:
         engine.counters[k] = 0
     for k in engine.phase_times:
         engine.phase_times[k] = 0
+    dtw_rounds = []
+    submit = engine._dtw_submit
+
+    def count_rounds(da, ev, ev_fetch):
+        pend = submit(da, ev, ev_fetch)
+        dtw_rounds.append(pend.small_idx.size > 0)
+        return pend
+
+    engine._dtw_submit = count_rounds
     for mod in counters.values():
         mod.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    results = list(engine.map_reads(reads))
-    torch.cuda.synchronize()
+    try:
+        results = list(engine.map_reads(reads))
+        torch.cuda.synchronize()
+    finally:
+        engine._dtw_submit = submit
     dt = time.perf_counter() - t0
     launches = {k: mod.launches for k, mod in counters.items()}
     c = engine.counters
@@ -698,6 +796,11 @@ def timed_pass(engine, reads, counters, label: str, smi: str):
     if min(launches.values()) == 0 or c["dtw_tiles_device"] == 0:
         raise RuntimeError(f"the {label} pass did not launch every kernel of "
                            f"its path: {launches}")
+    if launches["dtw_banded"] != sum(dtw_rounds):
+        raise RuntimeError(f"{label}: {launches['dtw_banded']} DTW launches for "
+                           f"{sum(dtw_rounds)} rounds with device tiles")
+    log(f"[{label}] DTW: one launch in each of {sum(dtw_rounds)} rounds "
+        f"({len(dtw_rounds)} rounds in all)")
     return results, launches
 
 
@@ -854,9 +957,10 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
         eng._dtw_submit = count_pool
         res, launches = timed_pass(eng, reads, all_counters, "6b cigar device", smi)
     same_lines("6b", lines_of(res), cigar, "6a")
-    if sum(pool_launches) != launches["dtw_banded"] or not sum(pool_launches):
-        raise RuntimeError(f"6b: {sum(pool_launches)} DTW launches on the pool "
-                           f"of {launches['dtw_banded']}")
+    if (sum(pool_launches) != launches["dtw_banded"] or not sum(pool_launches)
+            or max(pool_launches) > 1):
+        raise RuntimeError(f"6b: {pool_launches} DTW launches a round on the "
+                           f"pool, of {launches['dtw_banded']}")
     log(f"[6b cigar device] all {len(cigar)} PAF lines byte-identical to 6a; "
         f"{sum(pool_launches)} DTW launches in {len(pool_launches)} rounds, "
         "every one on the uploaded event pool")

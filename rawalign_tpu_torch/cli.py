@@ -12,6 +12,7 @@ and the native host library); mapping runs the port's engine.
 from __future__ import annotations
 
 import argparse
+import resource
 import sys
 import time
 
@@ -303,6 +304,8 @@ def main(argv=None) -> int:
         try:
             with open(args.output) as f:
                 already_done = {ln.split("\t", 1)[0] for ln in f if ln.strip()}
+            print(f"[M::main] resume: {len(already_done)} reads already mapped",
+                  file=sys.stderr)
         except OSError:
             pass
     checker = None
@@ -375,8 +378,14 @@ def main(argv=None) -> int:
         if engine is not None:
             engine.close()
     selfcheck_failed = checker is not None and checker.report()["n_divergent"] > 0
+    # final resource report (main.cpp:389-394); ru_maxrss is KiB on Linux,
+    # bytes on macOS
+    ru = resource.getrusage(resource.RUSAGE_SELF)
+    rss_div = 1024.0**3 if sys.platform == "darwin" else 1024.0**2
     print(f"[M::main] Version: {__version__}\n[M::main] Real time: "
-          f"{time.time()-t0:.3f} sec; reads: {n_out}", file=sys.stderr)
+          f"{time.time()-t0:.3f} sec; CPU: {ru.ru_utime + ru.ru_stime:.3f} sec; "
+          f"Peak RSS: {ru.ru_maxrss / rss_div:.3f} GB; reads: {n_out}",
+          file=sys.stderr)
     if selfcheck_failed and args.selfcheck_strict:
         return 7
     return 0

@@ -25,8 +25,9 @@
 // per read, the window evaluated by the 32 lanes at once, as the JAX
 // Pallas kernel evaluates it as a vector axis:
 //
-// * seg/target/query/f of the last W anchors live in a shared-memory
-//   ring of R slots (a power of two >= min(W, A) + 32); the lanes load
+// * seg/target/query/f of the last W anchors live in a ring of R slots
+//   (a power of two >= min(W, A) + 32), in shared memory while it fits
+//   and else in a device buffer the wrapper allocates; the lanes load
 //   the next 32 anchors' seg/target/query from global memory, coalesced,
 //   one block of 32 ahead of use, and store them into the ring when the
 //   anchor loop reaches that block;
@@ -51,10 +52,12 @@
 //   and writes f[i] into the ring; every 32 anchors the lanes write the
 //   block's scores and preds to global memory, coalesced.
 //
-// Every width up to the engine's ceiling (1<<17) runs in this one kernel:
-// A is bounded by nothing but device memory. The window is bounded by
-// the ring: 16 R bytes of shared memory, at most 227 KB, so
-// min(W, A) <= 8160.
+// Every width up to the engine's ceiling (1<<17) and every window run in
+// this one kernel body: A and W are bounded by nothing but device memory. The
+// ring takes 16 R bytes: in shared memory (at most 227 KB) up to
+// min(W, A) = 8160, beyond that in device memory (a ring per read, the
+// same code through another pointer; __syncwarp orders its writes for
+// the other lanes as it does in shared memory).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -142,13 +145,20 @@ __device__ __forceinline__ bool ra_chunk_step(
   return (c.gap_m | skip_m) != 0;
 }
 
+// The ring lives in shared memory (kDeviceRing false) or at gring, a
+// ring per read: one body, compiled for each, so the shared-memory kernel
+// keeps shared loads and stores (a pointer that may be either compiles to
+// generic ones, which measured 10% slower).
+template <bool kDeviceRing>
 __global__ void __launch_bounds__(32) ra_chain_dp_kernel(
     const int* __restrict__ seg, const int* __restrict__ tgt,
     const int* __restrict__ qry, const int* __restrict__ n_anchors, int A,
     int window, int ring_mask, int e, int max_gap, int max_target_gap,
-    int max_skips, float* __restrict__ scores, int* __restrict__ preds) {
-  extern __shared__ int ring[];
+    int max_skips, float* __restrict__ scores, int* __restrict__ preds,
+    int* gring) {
+  extern __shared__ int smem_ring[];
   const int R = ring_mask + 1;
+  int* ring = kDeviceRing ? gring + (size_t)blockIdx.x * 4 * R : smem_ring;
   int* rs = ring;                                 // segment
   int* rt = ring + R;                             // target position
   int* rq = ring + 2 * R;                         // query position
@@ -246,25 +256,32 @@ __global__ void __launch_bounds__(32) ra_chain_dp_kernel(
 }
 
 // One launch for B reads of A anchor slots each (row-major, contiguous):
-// one 32-thread block per read, 16 * ring bytes of dynamic shared memory
-// per block (ring a power of two >= min(window, A) + 32).
+// one 32-thread block per read, its ring of `ring` slots (a power of two
+// >= min(window, A) + 32) in 16 * ring bytes of dynamic shared memory, or,
+// when gring is not null, at gring + 4 * ring * read (B * 4 * ring int32).
 extern "C" int ra_chain_dp(int device, const int* seg, const int* tgt,
                            const int* qry, const int* n_anchors, int B, int A,
                            int window, int ring, int e, int max_gap,
                            int max_target_gap, int max_skips, float* scores,
-                           int* preds, void* stream) {
+                           int* preds, int* gring, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || A <= 0) return (int)cudaGetLastError();
+  if (gring) {
+    ra_chain_dp_kernel<true><<<B, 32, 0, (cudaStream_t)stream>>>(
+        seg, tgt, qry, n_anchors, A, window, ring - 1, e, max_gap,
+        max_target_gap, max_skips, scores, preds, gring);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = (size_t)ring * 4 * sizeof(int);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(ra_chain_dp_kernel,
+    err = cudaFuncSetAttribute(ra_chain_dp_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  ra_chain_dp_kernel<<<B, 32, smem, (cudaStream_t)stream>>>(
+  ra_chain_dp_kernel<false><<<B, 32, smem, (cudaStream_t)stream>>>(
       seg, tgt, qry, n_anchors, A, window, ring - 1, e, max_gap,
-      max_target_gap, max_skips, scores, preds);
+      max_target_gap, max_skips, scores, preds, nullptr);
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,8 @@ from rawalign_tpu_torch.map import chain
 
 #: shared memory a block may use on Hopper (bytes); a block keeps a ring
 #: of seg/target/query/score of the last W anchors and the next 32 there
-#: (16 bytes a slot, a power of two of at least min(W, A) + 32 slots), so
-#: min(W, A) may be up to 8160
+#: (16 bytes a slot, a power of two of at least min(W, A) + 32 slots) up
+#: to min(W, A) = 8160, and in a device buffer beyond
 MAX_SMEM = 232448
 
 launches = 0
@@ -31,7 +31,7 @@ def _entry():
     fn = build.load("chain_dp").ra_chain_dp
     p = ctypes.c_void_p
     i = ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p]
+    fn.argtypes = [i, p, p, p, p, i, i, i, i, i, i, i, i, p, p, p, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -58,22 +58,24 @@ def chain_dp(seg: torch.Tensor, target: torch.Tensor, query: torch.Tensor,
     if (n_anchors.device != seg.device or n_anchors.dtype != torch.int32
             or tuple(n_anchors.shape) != (B,) or not n_anchors.is_contiguous()):
         raise ValueError("chain_dp: n_anchors must be contiguous int32 (B,)")
+    if window < 0:
+        raise ValueError(f"chain_dp: window={window} must be >= 0")
     ring = 1
     while ring < min(window, A) + 32:
         ring *= 2
-    if window < 0 or 16 * ring > MAX_SMEM:
-        raise ValueError(f"chain_dp: window={window} unsupported at A={A} "
-                         f"(the shared-memory ring takes min(W, A) <= 8160)")
     dev = seg.device
     scores = torch.empty((B, A), dtype=torch.float32, device=dev)
     preds = torch.empty((B, A), dtype=torch.int32, device=dev)
     if B and A:
+        # a ring beyond shared memory lives in device memory, one per read
+        gring = (torch.empty((B, 4 * ring), dtype=torch.int32, device=dev)
+                 if 16 * ring > MAX_SMEM else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _entry()(
             dev.index, seg.data_ptr(), target.data_ptr(), query.data_ptr(),
             n_anchors.data_ptr(), B, A, window, ring, e, max_gap,
             max_target_gap, max_skips, scores.data_ptr(), preds.data_ptr(),
-            stream,
+            None if gring is None else gring.data_ptr(), stream,
         )
         build.check(err, "ra_chain_dp")
         launches += 1

@@ -8,10 +8,13 @@ them as rows (a_base, a_len, b_base, b_len, radius, exclude_last) with
 history]``. This module splits them by size exactly as the JAX engine
 does: tiles with a side above ``device_max_n``/``device_max_b`` run in
 the native host library on a worker thread, the rest are grouped into
-power-of-two size classes split by R parity, one descriptor column each,
-and every class is one launch of the banded DTW kernel
-(``map/dtw_cuda.py``). Only the descriptors cross to the device; the
-reference pool and the event history already live there.
+power-of-two size classes split by R parity, one descriptor column each
+(the JAX package's layout, so the plain per-class version and the JAX
+classing can be held to it). The whole round is then one launch of the
+banded DTW kernel (``map/dtw_cuda.py``) over a work list
+(:func:`work_list`): each tile at its own band width, the longest tiles
+first. The descriptors and the work list cross to the device in one
+upload; the reference pool and the event history already live there.
 
 The JAX package padded every class to a power-of-two multiple of 128
 tiles with dummy 1x1 tiles to keep TPU compile shapes few; the CUDA
@@ -112,18 +115,67 @@ def class_batches(a_base, a_len, b_base, b_len, radius, excl, small_idx, *,
     return small_idx, np.concatenate(descs, axis=1), batches
 
 
-def run_classes(ref_dev: torch.Tensor, hist_dev: torch.Tensor,
-                descs_dev: torch.Tensor, batches) -> torch.Tensor:
-    """Costs of every class batch, concatenated in class order: one
-    kernel launch per class."""
-    outs = [
-        dtw_cuda.dtw_banded_indexed(
-            ref_dev, hist_dev, descs_dev[:, c.start : c.start + c.count],
-            dpw=c.dpw,
-        )
-        for c in batches
-    ]
-    return torch.cat(outs)
+def work_list(descs: np.ndarray, *,
+              warp_max_slots: int = dtw_cuda.WARP_MAX_SLOTS):
+    """The kernel's work list for the (9, T) descriptors of a round.
+
+    Returns (jobs, block_w, stage): ``jobs`` (J, 1 + JOB_WARPS) int32,
+    one row per thread block of the launch, ``[K, t_0, .., t_7]`` for a
+    block whose warp w runs tile t_w (-1: none) with K slots a lane, or
+    ``[0, t, -1, ..]`` for a block that runs tile t alone; ``block_w``
+    the widest band among the latter and ``stage`` the most n + m among
+    the former (0 if none). A tile of W = max(lp, ls) + 2 band slots
+    takes the least K of ``WARP_K`` with 32 K >= W, if 32 K <=
+    ``warp_max_slots`` and its sequences fit a warp's share of shared
+    memory, else a block. Tiles are ordered by n, longest first (one
+    stable argsort), grouped by K in that order, and the jobs ordered by
+    their first (longest) tile, so the longest wavefronts start in the
+    launch's first wave."""
+    T = descs.shape[1]
+    width = np.maximum(descs[6], descs[7]).astype(np.int64) + 2
+    seqs = descs[2].astype(np.int64) + descs[5]
+    kind = np.zeros(T, np.int64)  # 0: a block
+    for k in reversed(dtw_cuda.WARP_K):
+        if 32 * k <= warp_max_slots:
+            kind[(width <= 32 * k) & (seqs <= dtw_cuda.STAGE_MAX)] = k
+    by_n = np.argsort(-descs[2].astype(np.int64), kind="stable")
+    W = dtw_cuda.JOB_WARPS
+    rows, lead = [], []
+    for k in (0,) + dtw_cuda.WARP_K:
+        sel = by_n[kind[by_n] == k]
+        if not sel.size:
+            continue
+        if k == 0:  # one tile a block
+            grid = np.full((sel.size, W), -1, np.int64)
+            grid[:, 0] = sel
+        else:  # W tiles a block, the last block padded with -1
+            grid = np.full(-(-sel.size // W) * W, -1, np.int64)
+            grid[: sel.size] = sel
+            grid = grid.reshape(-1, W)
+        rows.append(np.concatenate([np.full((grid.shape[0], 1), k), grid], axis=1))
+        lead.append(descs[2][grid[:, 0]])
+    if not rows:
+        return np.zeros((0, 1 + W), np.int32), 0, 0
+    jobs = np.concatenate(rows)
+    jobs = jobs[np.argsort(-np.concatenate(lead).astype(np.int64), kind="stable")]
+    blocks = kind == 0
+    block_w = int(width[blocks].max()) if blocks.any() else 0
+    stage = int(seqs[~blocks].max()) if (~blocks).any() else 0
+    return jobs.astype(np.int32), block_w, stage
+
+
+def run_round(ref_dev: torch.Tensor, hist_dev: torch.Tensor,
+              descs: np.ndarray) -> torch.Tensor:
+    """Costs of a round's (9, N) descriptors in column order: the
+    descriptors and the work list in one upload, one kernel launch."""
+    jobs, block_w, stage = work_list(descs)
+    flat = runtime.put(np.concatenate([descs.reshape(-1), jobs.reshape(-1)]),
+                       ref_dev.device)
+    n9 = descs.size
+    return dtw_cuda.dtw_banded_round(
+        ref_dev, hist_dev, flat[:n9].view(descs.shape),
+        flat[n9:].view(jobs.shape), block_w=block_w, stage=stage,
+    )
 
 
 @dataclasses.dataclass
@@ -164,10 +216,7 @@ def dtw_submit_indexed(
     )
     small_costs = None
     if batches:
-        descs_dev = runtime.put(descs, ref_dev.device)
-        small_costs = runtime.fetch_async(
-            run_classes(ref_dev, hist_dev, descs_dev, batches)
-        )
+        small_costs = runtime.fetch_async(run_round(ref_dev, hist_dev, descs))
     large_idx = np.nonzero(~small)[0]
     large_costs = None
     if large_idx.size:

@@ -112,6 +112,36 @@ def _tiles(rng, lref, hist_shape, n_tiles, max_len, full_fill):
     return np.asarray(rows, np.int64)
 
 
+def _dtw_round_vs_plain(dev, rng, da, lref, hist_shape, warp_max_slots):
+    """The round in one launch against the plain round and the per-class
+    plain version on the card; returns the descriptors and classes."""
+    ref = torch.from_numpy(rng.normal(0, 1, lref).astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.normal(0, 1, hist_shape).astype(np.float32)).to(dev)
+    cols = [da[:, k].astype(np.int32) for k in range(6)]
+    _order, descs, batches = tiles.class_batches(
+        *cols, np.arange(da.shape[0]), device_max_n=2048
+    )
+    descs_d = torch.from_numpy(descs).to(dev)
+    before = dtw_cuda.launches
+    if warp_max_slots == dtw_cuda.WARP_MAX_SLOTS:  # the dispatch's own path
+        got = tiles.run_round(ref, hist, descs)
+    else:
+        jobs, block_w, stage = tiles.work_list(descs, warp_max_slots=warp_max_slots)
+        got = dtw_cuda.dtw_banded_round(ref, hist, descs_d,
+                                        torch.from_numpy(jobs).to(dev),
+                                        block_w=block_w, stage=stage)
+    torch.cuda.synchronize()
+    assert dtw_cuda.launches == before + 1
+    assert torch.equal(got, dtw.dtw_banded_round(ref, hist, descs_d))
+    want = torch.cat([
+        dtw.dtw_banded_indexed(
+            ref, hist, descs_d[:, c.start : c.start + c.count], dpw=c.dpw)
+        for c in batches
+    ])
+    assert torch.equal(got, want)
+    return descs, batches
+
+
 @pytest.mark.parametrize("full_fill,max_len,n_tiles", [
     (False, 300, 400),
     (False, 2048, 24),
@@ -120,26 +150,31 @@ def _tiles(rng, lref, hist_shape, n_tiles, max_len, full_fill):
 def test_dtw_kernel_matches_plain(dev, full_fill, max_len, n_tiles):
     rng = np.random.default_rng(max_len)
     lref, hist_shape = 200_000, (4, 4096)
-    ref = torch.from_numpy(rng.normal(0, 1, lref).astype(np.float32)).to(dev)
-    hist = torch.from_numpy(rng.normal(0, 1, hist_shape).astype(np.float32)).to(dev)
     da = _tiles(rng, lref, hist_shape, n_tiles, max_len, full_fill)
-    cols = [da[:, k].astype(np.int32) for k in range(6)]
-    order, descs, batches = tiles.class_batches(
-        *cols, np.arange(da.shape[0]), device_max_n=2048
-    )
-    descs_d = torch.from_numpy(descs).to(dev)
+    _descs, batches = _dtw_round_vs_plain(dev, rng, da, lref, hist_shape,
+                                          dtw_cuda.WARP_MAX_SLOTS)
     if full_fill:
         assert max(c.dpw for c in batches) >= 4096
-    before = dtw_cuda.launches
-    got = tiles.run_classes(ref, hist, descs_d, batches)
-    want = torch.cat([
-        dtw.dtw_banded_indexed(
-            ref, hist, descs_d[:, c.start : c.start + c.count], dpw=c.dpw)
-        for c in batches
+
+
+@pytest.mark.parametrize("warp_max_slots", [0, 32, 64, 128])
+def test_dtw_kernel_one_round_of_every_class(dev, warp_max_slots):
+    """One round mixing every size class (32 .. 2048) and both R
+    parities, at radius 5%, 10% and 30% of the read: warp tiles of every
+    lane width beside block tiles, in one launch, whatever the cut-off."""
+    rng = np.random.default_rng(warp_max_slots + 3)
+    lref, hist_shape = 200_000, (4, 4096)
+    da = np.concatenate([
+        _tiles(rng, lref, hist_shape, 40, max_len, False)
+        for max_len in (16, 32, 64, 128, 256, 512, 1024, 2048)
     ])
-    torch.cuda.synchronize()
-    assert dtw_cuda.launches == before + len(batches)
-    assert torch.equal(got, want)
+    descs, batches = _dtw_round_vs_plain(dev, rng, da, lref, hist_shape,
+                                         warp_max_slots)
+    assert {c.max_n for c in batches} == {32, 64, 128, 256, 512, 1024, 2048}
+    assert {int(d6 > d7) for d6, d7 in zip(descs[6], descs[7])} == {0, 1}
+    jobs, _w, _stage = tiles.work_list(descs, warp_max_slots=warp_max_slots)
+    kinds = set(jobs[:, 0].tolist())
+    assert kinds == ({0} | {k for k in dtw_cuda.WARP_K if 32 * k <= warp_max_slots})
 
 
 def _cut_at_a_short_peak(row):
@@ -309,13 +344,37 @@ def test_chain_kernel_matches_plain_and_native(dev, window, B, A, interleave):
     assert (npred != np.arange(A)).any()
 
 
-def test_chain_kernel_refuses_a_window_beyond_its_ring(dev):
+def test_chain_kernel_takes_a_window_beyond_shared_memory(dev):
     """min(W, A) above 8160 does not fit the shared-memory ring: the
-    wrapper raises, with no other kernel to fall back to."""
-    x = torch.zeros((1, 9000), dtype=torch.int32, device=dev)
-    n = torch.full((1,), 9000, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="window=8161"):
-        chain_cuda.chain_dp(x, x, x, n, window=8161, **CHAIN_KW)
+    kernel keeps its ring in device memory, with the same scores and
+    predecessors as the plain DP and native, W = 10,000 at A = 16,384."""
+    rng = np.random.default_rng(10_000)
+    A = 16_384
+    seg, tgt, qry, n = _chain_rows(rng, 2, A, interleave=True)
+    # row 1: a co-linear run of segment 0 broken by 9000 anchors of
+    # segment 1, so that its second half chains 9001 slots back
+    run = np.arange(100)
+    seg[1] = 2
+    seg[1, :100] = seg[1, 9100:9200] = 0
+    seg[1, 100:9100] = 1
+    tgt[1] = rng.integers(0, 10 * A, A)
+    qry[1] = rng.integers(0, 2 * A, A)
+    tgt[1, :100], qry[1, :100] = 10 * run, 9 * run
+    tgt[1, 9100:9200], qry[1, 9100:9200] = 1000 + 10 * run, 900 + 9 * run
+    n[1] = A
+    kw = dict(window=10_000, **CHAIN_KW)
+    d = [torch.from_numpy(x).to(dev) for x in (seg, tgt, qry, n)]
+    before = chain_cuda.launches
+    got = chain_cuda.chain_dp(*d, **kw)
+    torch.cuda.synchronize()
+    assert chain_cuda.launches == before + 1
+    want = chain.chain_dp_plain(*d, **kw)
+    assert torch.equal(got.scores, want.scores)
+    assert torch.equal(got.preds, want.preds)
+    ns, npred = native.chain_dp(seg, tgt, qry, n, **kw)
+    np.testing.assert_array_equal(got.scores.cpu().numpy(), ns)
+    np.testing.assert_array_equal(got.preds.cpu().numpy(), npred)
+    assert npred[1, 9100] == 99  # beyond the reach of an 8160-slot ring
 
 
 @pytest.mark.parametrize("w", [1, 5])

@@ -1,15 +1,20 @@
 """The port's copy of the CLI's parser and option handling against the
 JAX CLI's: every option with the same flags, destination, default,
 choices, type and help (the port adds ``--device``), and the same argv to
-the same parsed arguments and the same index and mapping options.
+the same parsed arguments and the same index and mapping options; and
+the same stderr lines under ``--resume`` and at the end of a run.
 """
 
 import argparse
 import dataclasses
+import re
 
 import pytest
 
 from rawalign_tpu import cli as jcli
+from rawalign_tpu.io import fast5, fasta
+from rawalign_tpu.pore_model import save_pore_model
+from rawalign_tpu.testing import synth
 from rawalign_tpu_torch import cli as tcli
 from rawalign_tpu_torch import config
 
@@ -86,3 +91,52 @@ def test_unknown_fill_method_exits_as_in_the_jax_cli():
 @pytest.mark.parametrize("text", ["500M", "1.5g", "750k", "42", " 2G "])
 def test_parse_num(text):
     assert tcli.parse_num(text) == jcli.parse_num(text)
+
+
+def _stderr_fields(text: str) -> list[str]:
+    """stderr lines with every number masked (times, RSS, counts stay
+    apart from the words around them)."""
+    return [re.sub(r"\d+(\.\d+)?", "N", ln) for ln in text.splitlines()]
+
+
+@pytest.mark.parametrize("engine", ["golden", "device"])
+def test_resume_and_final_lines_match_the_jax_cli(tmp_path, capsys, engine):
+    """A first run writes the PAF, a second with ``--resume`` finds every
+    read mapped: the port prints the JAX CLI's ``resume:`` line and its
+    final ``Real time: ... CPU: ... Peak RSS: ...; reads:`` line, numbers
+    masked, and leaves the same PAF. The JAX CLI runs its golden engine
+    (no JAX compile); the port its golden engine or the mapping engine on
+    the CPU."""
+    ds = synth.make_dataset(seed=5, genome_lengths=[6_000], n_reads=3,
+                            read_len_bp=(250, 400), noise_pa=1.2)
+    fasta.write_fasta(str(tmp_path / "ref.fa"), [(s.name, s.seq) for s in ds.seqs])
+    save_pore_model(str(tmp_path / "model.txt"), ds.model)
+    fast5.write_fast5(str(tmp_path / "reads.fast5"),
+                      [(r.name, r.signal) for r in ds.reads])
+    common = ["-x", "viral", "-t", "1"]
+    assert jcli.main(common + ["-p", str(tmp_path / "model.txt"),
+                               "-d", str(tmp_path / "ref.idx.npz"),
+                               str(tmp_path / "ref.fa")]) == 0
+    capsys.readouterr()
+    args = [str(tmp_path / "ref.idx.npz"), str(tmp_path / "reads.fast5")]
+    port = (["--engine", "golden"] if engine == "golden"
+            else ["--device", "cpu"])
+    runs = {}
+    for name, main, extra in (("jax", jcli.main, ["--engine", "golden"]),
+                              ("port", tcli.main, port)):
+        out = str(tmp_path / f"{name}.paf")
+        assert main(common + extra + ["-o", out] + args) == 0
+        first = capsys.readouterr().err
+        assert main(common + extra + ["--resume", "-o", out] + args) == 0
+        runs[name] = (first, capsys.readouterr().err,
+                      (tmp_path / f"{name}.paf").read_text())
+    (jfirst, jresume, jpaf), (tfirst, tresume, tpaf) = runs["jax"], runs["port"]
+    assert f"[M::main] resume: {len(ds.reads)} reads already mapped" in tresume
+    assert _stderr_fields(tresume) == _stderr_fields(jresume)
+    assert _stderr_fields(tfirst)[-2:] == _stderr_fields(jfirst)[-2:]
+    last = tfirst.splitlines()[-1]
+    assert re.fullmatch(r"\[M::main\] Real time: \d+\.\d{3} sec; CPU: \d+\.\d{3} "
+                        r"sec; Peak RSS: \d+\.\d{3} GB; reads: 3", last), last
+    assert tpaf.count("\n") == len(ds.reads)
+    strip = lambda s: sorted(re.sub(r"mt:f:[0-9.]+", "", s).splitlines())  # noqa: E731
+    assert strip(tpaf) == strip(jpaf)
