@@ -66,7 +66,23 @@ Phases (each raises on failure; the script then exits non-zero):
       all-device pass whose PAFs must be equal, the first 16 lines also
       to the same engine at ``device="cpu"`` (plain versions);
    d. ``stage1_impl="host"`` (host events, sketch and lookup; device
-      DTW): the first 16 lines equal the same engine at ``device="cpu"``.
+      DTW): the first 16 lines equal the same engine at ``device="cpu"``;
+7. the distributed engine (``parallel/dist_engine.py``) over a mesh of
+   four ranks, four distinct cards when the machine has them, else four
+   ranks on the one card: a warm and a timed pass with the hybrid stage1
+   on a (2, 2) mesh and with the device stage1 on a (1, 4) mesh. All 256
+   PAF lines of each timed pass must equal phase 5's; in each, every rank
+   launches the sketch and chain kernels once a round (and the event
+   kernel under the device stage1) and the DTW kernel once a round when
+   it has tiles. The routed stage1 (all-to-all lookup) is held to the
+   one-card stage1 on a captured round, and phase 4's captured DTW round,
+   dealt over the ranks, to the one-launch round bit for bit. It logs
+   reads/s beside phases 4 and 5, the all-to-all bytes a round and each
+   rank's longest DTW tile.
+
+``python3 -c 'import chip_smoke; chip_smoke.distributed_only()'`` runs
+phases 1-3, the timed passes of 4 and 5 and phase 7 alone (a minute or
+two), for a machine with four cards.
 
 Every kernel's record carries its time, its plain version's, and its
 bound: the larger of the bytes its launch must move at the card's memory
@@ -633,12 +649,13 @@ def check_events(ds, mo, device, reps: int = 20) -> dict:
 
 
 def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
-              scan: bool = True) -> dict:
+              scan: bool = True, scan_rows: int | None = None) -> dict:
     """Chain kernel on one packed round (B, 3a+1): timed, and held bit for
     bit to both plain versions and to ``native.chain_dp``. The plain DP
     runs on the card; the warp-form scan runs on the host CPU (the same
     arithmetic; on the card each of its per-chunk steps is a dozen
-    launches) and counts the predecessor slots the serial loop visits.
+    launches) on all rows or the first ``scan_rows``, and counts the
+    predecessor slots the serial loop visits (the bound needs all rows).
     Without ``scan`` the scan, its count and the bound are left out."""
     import numpy as np
     import torch
@@ -657,13 +674,15 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
     checks = [("chain_dp_plain", want)]
     visited = torch.zeros(n.size, dtype=torch.int64)
     t0 = time.perf_counter()
+    rows = slice(0, scan_rows)
     if scan:
         checks.append(("chain_dp_scan_plain", chain.chain_dp_scan_plain(
-            *host, visited=visited, **kw)))
+            *(x[rows] for x in host), visited=visited[rows], **kw)))
     scan_s = time.perf_counter() - t0
     for what, ref in checks:
-        if not (torch.equal(got.scores.cpu(), ref.scores.cpu())
-                and torch.equal(got.preds.cpu(), ref.preds.cpu())):
+        k = ref.scores.shape[0]
+        if not (torch.equal(got.scores[:k].cpu(), ref.scores.cpu())
+                and torch.equal(got.preds[:k].cpu(), ref.preds.cpu())):
             raise RuntimeError(f"chain kernel disagrees with {what} ({label})")
     ns, npred = native.chain_dp(seg, tgt, qry, n, **kw)
     if not (np.array_equal(got.scores.cpu().numpy(), ns)
@@ -684,7 +703,10 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
         f"anchor of the widest read), plain {plain_ms:.2f} ms on the card, "
         + (f"scan {scan_s:.1f} s on the CPU; {slots} slots visited, bound "
            f"{bound_ms:.6f} ms ({bound_by}); bit-identical to both plain "
-           "versions and native" if scan else
+           "versions and native" if scan and scan_rows is None else
+           f"scan of the first {scan_rows} rows {scan_s:.1f} s on the CPU; "
+           "bit-identical to both plain versions (the scan on those rows) "
+           "and native" if scan else
            "bit-identical to chain_dp_plain and native"))
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=float(
         (got.scores - want.scores).abs().max()), bound_ms=bound_ms,
@@ -729,8 +751,11 @@ def check_chain(engine, captured, device, reps: int = 10) -> dict:
     wide = _chain_round(rng, 32, A, 8, 5_000_000, False)
     rec["wide_ms"] = _chain_vs(wide, A, device, 64, kw, 3, "synthetic round")["ms"]
     dense = _chain_round(rng, 32, A, 8, 400_000, True)
+    # the scan of all 32 rows of this round takes minutes of the host
+    # CPU; eight rows hold the kernel to it, all 32 to the plain DP
     rec["w2048_ms"] = _chain_vs(dense, A, device, 2048, kw, 3,
-                                "synthetic round, interleaved")["ms"]
+                                "synthetic round, interleaved",
+                                scan_rows=8)["ms"]
     # a window beyond the shared-memory ring (min(W, A) > 8160)
     _chain_vs(dense[:8], A, device, 12_000, kw, 3,
               "synthetic round, interleaved, wide window", scan=False)
@@ -752,11 +777,68 @@ def main() -> int:
     return 0
 
 
-def timed_pass(engine, reads, counters, label: str, smi: str):
-    """Map every read once with the launch counters zeroed just before;
-    returns (results, launches read just after). The DTW kernel must
-    take one launch for each round that sends it tiles."""
+def distributed_only() -> None:
+    """Phases 1-3, the warm and timed passes of phases 4 and 5 without
+    their kernel checks, then phase 7: the short run of the distributed
+    engine, over four distinct cards on a machine that has them.
+
+        python3 -c 'import chip_smoke; chip_smoke.distributed_only()'
+    """
     import torch
+
+    from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
+    from rawalign_tpu_torch.map.engine import MappingEngine
+    from rawalign_tpu_torch.seeds import sketch_cuda
+    from rawalign_tpu_torch.signal import events_cuda
+
+    t_start = time.perf_counter()
+    _name, smi = card()
+    native_library()
+    build_kernels()
+    device = torch.device("cuda", 0)
+    ds, idx, _io, mo = dataset()
+    reads = [(r.name, r.signal) for r in ds.reads]
+    hybrid = MappingEngine(idx, mo, device=device, batch_size=32,
+                           pipeline_depth=8)
+    captured = []
+    submit = hybrid._dtw_submit
+
+    def capture(da, hist, ev_fetch):
+        if not captured:
+            captured.append((da.copy(), hist.clone()))
+        return submit(da, hist, ev_fetch)
+
+    hybrid._dtw_submit = capture
+    list(hybrid.map_reads(reads))
+    del hybrid._dtw_submit
+    _res, _l, hybrid_rate = timed_pass(
+        hybrid, reads, {"sketch_scan": sketch_cuda, "dtw_banded": dtw_cuda},
+        "hybrid", smi)
+    hybrid.close()
+    engine = MappingEngine(idx, mo, device=device, batch_size=32,
+                           pipeline_depth=8, stage1_impl="device",
+                           chain_impl="device")
+    list(engine.map_reads(reads))
+    res, _l, device_rate = timed_pass(
+        engine, reads,
+        {"event_detect": events_cuda, "sketch_scan": sketch_cuda,
+         "chain_dp": chain_cuda, "dtw_banded": dtw_cuda},
+        "device", smi)
+    engine.close()
+    phase7(device, idx, mo, reads, lines_of(res), engine, hybrid._ref_cat_dev,
+           captured[0], {"4 hybrid": hybrid_rate, "5 all-device": device_rate},
+           smi)
+    log(f"[smoke] distributed run {time.perf_counter() - t_start:.1f} s")
+
+
+def timed_pass(engine, reads, counters, label: str, smi: str, ranks: int = 1):
+    """Map every read once with the launch counters zeroed just before;
+    returns (results, launches read just after, reads/s). Each round that
+    sends the DTW kernel tiles must launch it once per rank with tiles (at
+    least once, at most ``ranks`` times), and no other round may."""
+    import torch
+
+    from rawalign_tpu_torch.map import dtw_cuda
 
     for k in engine.counters:
         engine.counters[k] = 0
@@ -766,8 +848,15 @@ def timed_pass(engine, reads, counters, label: str, smi: str):
     submit = engine._dtw_submit
 
     def count_rounds(da, ev, ev_fetch):
+        before = dtw_cuda.launches
         pend = submit(da, ev, ev_fetch)
-        dtw_rounds.append(pend.small_idx.size > 0)
+        n = dtw_cuda.launches - before
+        has_tiles = pend.small_idx.size > 0
+        if n > min(ranks, pend.small_idx.size) or has_tiles != (n > 0):
+            raise RuntimeError(f"{label}: {n} DTW launches for a round of "
+                               f"{pend.small_idx.size} device tiles over "
+                               f"{ranks} ranks")
+        dtw_rounds.append(has_tiles)
         return pend
 
     engine._dtw_submit = count_rounds
@@ -796,12 +885,13 @@ def timed_pass(engine, reads, counters, label: str, smi: str):
     if min(launches.values()) == 0 or c["dtw_tiles_device"] == 0:
         raise RuntimeError(f"the {label} pass did not launch every kernel of "
                            f"its path: {launches}")
-    if launches["dtw_banded"] != sum(dtw_rounds):
+    if ranks == 1 and launches["dtw_banded"] != sum(dtw_rounds):
         raise RuntimeError(f"{label}: {launches['dtw_banded']} DTW launches for "
                            f"{sum(dtw_rounds)} rounds with device tiles")
-    log(f"[{label}] DTW: one launch in each of {sum(dtw_rounds)} rounds "
-        f"({len(dtw_rounds)} rounds in all)")
-    return results, launches
+    log(f"[{label}] DTW: {launches['dtw_banded']} launches in the "
+        f"{sum(dtw_rounds)} rounds with device tiles (of {len(dtw_rounds)}), "
+        f"one per rank with tiles, {ranks} ranks")
+    return results, launches, len(results) / dt
 
 
 def score(ds, results) -> tuple[float, float]:
@@ -917,7 +1007,7 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
     mo_a.set_flag(F.DTW_OUTPUT_CIGAR | F.OUTPUT_CHAINS)
     with MappingEngine(idx, mo_a, device=device, batch_size=32,
                        pipeline_depth=8) as eng:
-        res, _ = timed_pass(eng, reads, hy_counters, "6a cigar hybrid", smi)
+        res, _, _ = timed_pass(eng, reads, hy_counters, "6a cigar hybrid", smi)
     cigar = lines_of(res)
     n_aln = sum("\taln:s:" in ln and "\tanchors:s:" in ln for ln in cigar.values())
     for n, line in hybrid.items():
@@ -955,7 +1045,7 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
             return pend
 
         eng._dtw_submit = count_pool
-        res, launches = timed_pass(eng, reads, all_counters, "6b cigar device", smi)
+        res, launches, _ = timed_pass(eng, reads, all_counters, "6b cigar device", smi)
     same_lines("6b", lines_of(res), cigar, "6a")
     if (sum(pool_launches) != launches["dtw_banded"] or not sum(pool_launches)
             or max(pool_launches) > 1):
@@ -977,14 +1067,14 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
     check_minimizer(ds, mo_c, io_f, device)
     with MappingEngine(idx_f, mo_c, device=device, batch_size=32,
                        pipeline_depth=8) as eng:
-        res, _ = timed_pass(eng, reads, hy_counters, "6c faster hybrid", smi)
+        res, _, _ = timed_pass(eng, reads, hy_counters, "6c faster hybrid", smi)
     faster = lines_of(res)
     mf, cf = score(ds, res)
     log(f"[6c faster hybrid] mapped_frac {mf:.4f}, correct_frac {cf:.4f}")
     with MappingEngine(idx_f, mo_c, device=device, batch_size=32,
                        pipeline_depth=8, stage1_impl="device",
                        chain_impl="device") as eng:
-        res, _ = timed_pass(eng, reads, all_counters, "6c faster device", smi)
+        res, _, _ = timed_pass(eng, reads, all_counters, "6c faster device", smi)
     same_lines("6c", lines_of(res), faster, "the faster hybrid pass")
     same_lines("6c", {r.name: faster[r.name] for r in ds.reads[:N_GOLDEN]},
                cpu_reference(idx_f, mo_c, reads, "6c faster"),
@@ -996,7 +1086,7 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
     # ---- 6d: the host stage1 (sensitive + DTW); the device runs the DTW
     with MappingEngine(idx, mo, device=device, batch_size=32,
                        pipeline_depth=8, stage1_impl="host") as eng:
-        res, _ = timed_pass(eng, reads, {"dtw_banded": dtw_cuda},
+        res, _, _ = timed_pass(eng, reads, {"dtw_banded": dtw_cuda},
                             "6d host stage1", smi)
     host = lines_of(res)
     same_lines("6d", {r.name: host[r.name] for r in ds.reads[:N_GOLDEN]},
@@ -1006,6 +1096,154 @@ def phase6(device, ds, idx, mo, reads, hybrid: dict, smi: str) -> None:
     log(f"[6d host stage1] the first {N_GOLDEN} PAF lines byte-identical to "
         f"the engine at device='cpu'; {n_eq} of {len(hybrid)} equal to the "
         "hybrid pass (the host stage1 does not compact the seeds)")
+
+
+def _check_routed_stage1(label, dist, single, packed) -> None:
+    """The distributed engine's routed stage1 on a captured round against
+    the one-card stage1 (``_stage1_post``) on the same input: counts and
+    scalars equal, lo and qpos equal where the count is positive."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu_torch import runtime
+    from rawalign_tpu_torch.map import stage1_codec
+
+    B = packed.shape[0]
+    hist = torch.zeros((B, single._hmax), device=single.device)
+    off = np.zeros(B, np.int32)
+    ne = single.opt.max_events_per_chunk
+    if dist.stage1_impl == "device":
+        got, want = (e._stage1_device(packed, hist, off) for e in (dist, single))
+    else:
+        got, want = (e._stage1(packed, hist, off) for e in (dist, single))
+    a, b = (stage1_codec.unpack_stage1(
+        runtime.fetch(x), ne=ne, ns=e._ns_out, events_on_host=e._s1_dl_events)
+        for x, e in ((want, single), (got, dist)))
+    used = a.count > 0
+    same = (np.array_equal(a.count, b.count)
+            and np.array_equal(a.lo[used], b.lo[used])
+            and np.array_equal(a.qpos[used], b.qpos[used])
+            and all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+                "n_events", "n_ev_dropped", "n_occ_dropped",
+                "n_compact_dropped")))
+    if not same or not used.any():
+        raise RuntimeError(f"{label}: the routed stage1 disagrees with the "
+                           "one-card stage1 on the captured round")
+    log(f"[{label}] routed stage1 on the captured round: counts, scalars and "
+        f"lo/qpos of {int(used.sum())} seeds with hits equal the one-card "
+        "stage1's")
+
+
+def _check_sharded_dtw(mesh, ref_cat, captured, device_max_n: int) -> None:
+    """Phase 4's captured DTW round dealt over ``mesh``: costs
+    bit-identical to the one-launch round; logs each rank's longest tile
+    and both times."""
+    import numpy as np
+    import torch
+
+    from rawalign_tpu_torch.map import tiles
+
+    da, hist = captured
+    cols = [da[:, k].astype(np.int32) for k in range(6)]
+    small = (cols[1] <= device_max_n) & (cols[3] <= device_max_n)
+    _order, descs, _b = tiles.class_batches(*cols, np.nonzero(small)[0],
+                                            device_max_n=device_max_n)
+    refs = {d: ref_cat.to(d) for d in mesh.distinct}
+    one_ms, one = cuda_ms(lambda: tiles.run_round(ref_cat, hist, descs), 10)
+    sh_ms, (order, costs) = cuda_ms(
+        lambda: tiles.run_round_sharded(mesh, refs, hist, descs), 10)
+    if not torch.equal(costs.cpu(), one.cpu()[torch.from_numpy(order)]):
+        raise RuntimeError("the sharded DTW round disagrees with the one-card "
+                           "round")
+    longest = [int(descs[2][sel].max()) if sel.size else 0
+               for sel in tiles.deal(descs[2], mesh.size)]
+    log(f"[7 dtw] phase 4's captured round ({descs.shape[1]} device tiles) "
+        f"dealt over {mesh.size} ranks: bit-identical to the one-launch round; "
+        f"longest tile per rank {longest}; {sh_ms:.4f} ms sharded against "
+        f"{one_ms:.4f} ms in one launch (synchronised wall)")
+
+
+def phase7(device, idx, mo, reads, device_lines: dict, single, ref_cat,
+           captured_dtw, rates: dict, smi: str) -> None:
+    """Phase 7: the distributed engine over a mesh of four ranks (four
+    cards when there are, else four ranks on ``device``): a warm and a timed
+    pass with the hybrid stage1 on (2, 2) and the device stage1 on (1, 4).
+    Every timed pass's PAF must equal phase 5's, each rank must launch the
+    sketch and chain kernels once a round (and the event kernel under the
+    device stage1), the DTW kernel at most once a rank a round and at
+    least once a pass; the routed stage1 is held to the one-card stage1
+    on a captured round, the sharded DTW to the one-launch round."""
+    import torch
+
+    from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
+    from rawalign_tpu_torch.parallel import mesh as pmesh
+    from rawalign_tpu_torch.parallel.dist_engine import DistributedMappingEngine
+    from rawalign_tpu_torch.seeds import sketch_cuda
+    from rawalign_tpu_torch.signal import events_cuda
+
+    t0 = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    distinct = n_cards >= 4
+    devices = ([torch.device("cuda", i) for i in range(4)] if distinct
+               else [device] * 4)
+    log(f"[7] {n_cards} card(s) visible: the mesh's four ranks are "
+        + ("four distinct cards" if distinct else f"four ranks on {device}"))
+    for label, layout, s1 in (("7a hybrid (2, 2)", (2, 2), "hybrid"),
+                              ("7b device (1, 4)", (1, 4), "device")):
+        mesh = pmesh.make_mesh(*layout, devices=devices)
+        R = mesh.size
+        counters = {"sketch_scan": sketch_cuda, "chain_dp": chain_cuda,
+                    "dtw_banded": dtw_cuda}
+        if s1 == "device":
+            counters["event_detect"] = events_cuda
+        with DistributedMappingEngine(idx, mo, mesh, batch_size=32,
+                                      pipeline_depth=8,
+                                      stage1_impl=s1) as eng:
+            entry = "_stage1_device" if s1 == "device" else "_stage1"
+            stage1, chain_dp = getattr(eng, entry), eng._chain_dp
+            calls = {"stage1": 0, "chain": 0}
+            first = []
+
+            def count_stage1(packed, hist, off):
+                calls["stage1"] += 1
+                if not first:
+                    first.append(packed.copy())
+                return stage1(packed, hist, off)
+
+            def count_chain(packed, a):
+                calls["chain"] += 1
+                return chain_dp(packed, a)
+
+            setattr(eng, entry, count_stage1)
+            eng._chain_dp = count_chain
+            t1 = time.perf_counter()
+            list(eng.map_reads(reads))
+            torch.cuda.synchronize()
+            log(f"[{label}] warm pass {time.perf_counter() - t1:.2f} s")
+            _check_routed_stage1(label, eng, single, first[0])
+            calls.update(stage1=0, chain=0)
+            res, launches, rate = timed_pass(eng, reads, counters, label, smi,
+                                             ranks=R)
+            rounds = calls["stage1"]
+            want = {"sketch_scan": R * rounds, "chain_dp": R * calls["chain"],
+                    "event_detect": R * rounds}
+            got = {k: launches[k] for k in want if k in launches}
+            if any(got[k] != want[k] for k in got) or not launches["dtw_banded"]:
+                raise RuntimeError(f"{label}: launches {launches}, expected "
+                                   f"{want} and at least one DTW launch")
+            same_lines(label, lines_of(res), device_lines, "phase 5's")
+            a2a = eng.counters["all_to_all_bytes"]
+            log(f"[{label}] all {len(res)} PAF lines byte-identical to phase "
+                f"5's; {rounds} stage1 rounds, {calls['chain']} chain rounds "
+                f"over {R} ranks; all-to-all {a2a / max(rounds, 1):.0f} bytes "
+                f"a round between ranks ({a2a} in the pass); {rate:.2f} reads/s "
+                f"against phase " + ", ".join(f"{k} {v:.2f}"
+                                              for k, v in rates.items())
+                + f" on {smi}, ranks on "
+                + ("four distinct cards" if distinct else "one card"))
+    _check_sharded_dtw(pmesh.make_mesh(1, 4, devices=devices), ref_cat,
+                       captured_dtw, single.dtw_device_max_n)
+    log(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s")
 
 
 def run(device, name: str, smi: str, t_start: float) -> None:
@@ -1044,10 +1282,11 @@ def run(device, name: str, smi: str, t_start: float) -> None:
 
     rec_sketch = check_sketch(ds, mo, io, device)
     rec_dtw = check_dtw(engine, captured[0], device)
-    results, _ = timed_pass(
+    results, _, hybrid_rate = timed_pass(
         engine, reads, {"sketch_scan": sketch_cuda, "dtw_banded": dtw_cuda},
         "hybrid", smi)
     engine.close()
+    ref_cat = engine._ref_cat_dev
 
     mf, cf = score(ds, results)
     log(f"[hybrid] mapped_frac {mf:.4f}, correct_frac {cf:.4f}")
@@ -1088,7 +1327,7 @@ def run(device, name: str, smi: str, t_start: float) -> None:
 
     rec_events = check_events(ds, mo, device)
     rec_chain = check_chain(engine, chain_round[0], device)
-    results, launches = timed_pass(
+    results, launches, device_rate = timed_pass(
         engine, reads,
         {"event_detect": events_cuda, "sketch_scan": sketch_cuda,
          "chain_dp": chain_cuda, "dtw_banded": dtw_cuda},
@@ -1103,6 +1342,8 @@ def run(device, name: str, smi: str, t_start: float) -> None:
         f"hybrid pass (mt:f stripped), the first {N_GOLDEN} to golden.engine")
 
     phase6(device, ds, idx, mo, reads, hybrid, smi)
+    phase7(device, idx, mo, reads, device_lines, engine, ref_cat, captured[0],
+           {"4 hybrid": hybrid_rate, "5 all-device": device_rate}, smi)
 
     def rec(kname, src, replaces, r):
         return {"name": kname, "route": "cuda",

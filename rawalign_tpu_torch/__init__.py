@@ -10,8 +10,10 @@ two share. It re-implements the device side of a mapping round in
 PyTorch, with a hand-written CUDA kernel for each of the JAX package's
 TPU kernels: event detection (``signal/events_cuda.py``), the sketch
 scan (``seeds/sketch_cuda.py``), the chaining DP (``map/chain_cuda.py``)
-and the descriptor-indexed banded DTW (``map/dtw_cuda.py``). It never
-imports ``jax``.
+and the descriptor-indexed banded DTW (``map/dtw_cuda.py``).
+``parallel/`` maps over a (data, shard) mesh of cards driven from one
+process (``mesh.py``, ``dist_engine.py``) and joins hosts through
+``torch.distributed`` (``distributed.py``). It never imports ``jax``.
 """
 
 __version__ = "0.1.0"

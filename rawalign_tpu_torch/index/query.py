@@ -5,7 +5,9 @@ per-key (first position, count) and a 2^b bucket table over the keys'
 top bits; a lookup is then a bucket read plus a fixed-depth binary
 search inside the bucket. The tables are built with numpy, exactly as
 the JAX package builds them, and moved to the engine's device: they are
-the index's device state (:func:`index_state`).
+the index's device state (:func:`index_state`). :func:`query_seeds`
+is the older dense form (a searchsorted on the sorted keys and up to
+``max_occ`` hits a seed), used by ``parallel/mesh.py:build_mapping_step``.
 
 Hashes are uint32 values held in int64 tensors, so the bucket index
 ``h >> (32 - b_bits)`` and every comparison are unsigned-correct (int32
@@ -86,3 +88,43 @@ def lookup_bounds(bk: BucketedKeys,
     cnt = torch.where(eq, bk.kcnt[safe], 0).to(torch.int32)
     glo = torch.where(eq, bk.kidx[safe], 0).to(torch.int32)
     return glo, cnt
+
+
+class HitBatch(NamedTuple):
+    t_id: torch.Tensor  # (B, NE, MAX_OCC) int32 target sequence id
+    t_pos: torch.Tensor  # (B, NE, MAX_OCC) int32 target signal position
+    strand: torch.Tensor  # (B, NE, MAX_OCC) int32 0/1
+    q_pos: torch.Tensor  # (B, NE, MAX_OCC) int32 query event index
+    valid: torch.Tensor  # (B, NE, MAX_OCC) bool
+    n_dropped: torch.Tensor  # (B,) int32 hits lost to the MAX_OCC cap
+
+
+def query_seeds(keys: torch.Tensor, val_id: torch.Tensor, val_ps: torch.Tensor,
+                hashes: torch.Tensor, qpos: torch.Tensor,
+                seed_valid: torch.Tensor, *, max_occ: int = 16) -> HitBatch:
+    """Dense per-seed hit lists of up to ``max_occ`` index entries
+    (rawalign_tpu/index/query.py:query_seeds): seeds with more hits than
+    that get none and count in ``n_dropped``. ``keys`` (S,) sorted,
+    ``val_id``/``val_ps`` (S,) and ``hashes`` (B, NE) are int64 holding
+    uint32 values; ``qpos`` (B, NE) integer; ``seed_valid`` (B, NE) bool.
+    ``val_ps`` packs pos << 1 | strand (rmap.cpp:326,387)."""
+    B, NE = hashes.shape
+    lo = torch.searchsorted(keys, hashes)
+    hi = torch.searchsorted(keys, hashes, right=True)
+    count = (hi - lo).to(torch.int32)
+    over_cap = count > max_occ
+    o = torch.arange(max_occ, device=hashes.device)
+    gidx = (lo[..., None] + o).clamp(0, max(keys.numel() - 1, 0))
+    hit_valid = (seed_valid[..., None] & ~over_cap[..., None]
+                 & (o < count[..., None]))
+    ps = val_ps[gidx]
+    dropped = torch.where(seed_valid & over_cap, count, 0).sum(
+        dim=1, dtype=torch.int32)
+    return HitBatch(
+        t_id=val_id[gidx].to(torch.int32),
+        t_pos=((ps >> 1) & 0x7FFFFFFF).to(torch.int32),
+        strand=(ps & 1).to(torch.int32),
+        q_pos=qpos.to(torch.int32)[..., None].expand(B, NE, max_occ),
+        valid=hit_valid,
+        n_dropped=dropped,
+    )

@@ -71,12 +71,15 @@ def chain_dp(seg: torch.Tensor, target: torch.Tensor, query: torch.Tensor,
         gring = (torch.empty((B, 4 * ring), dtype=torch.int32, device=dev)
                  if 16 * ring > MAX_SMEM else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(
-            dev.index, seg.data_ptr(), target.data_ptr(), query.data_ptr(),
-            n_anchors.data_ptr(), B, A, window, ring, e, max_gap,
-            max_target_gap, max_skips, scores.data_ptr(), preds.data_ptr(),
-            None if gring is None else gring.data_ptr(), stream,
-        )
+        # the entry point sets the thread's current device; the guard
+        # gives the caller's back
+        with torch.cuda.device(dev):
+            err = _entry()(
+                dev.index, seg.data_ptr(), target.data_ptr(), query.data_ptr(),
+                n_anchors.data_ptr(), B, A, window, ring, e, max_gap,
+                max_target_gap, max_skips, scores.data_ptr(), preds.data_ptr(),
+                None if gring is None else gring.data_ptr(), stream,
+            )
         build.check(err, "ra_chain_dp")
         launches += 1
     return chain.ChainScores(scores=scores, preds=preds)

@@ -88,11 +88,14 @@ def dtw_banded_round(ref: torch.Tensor, hist: torch.Tensor,
     out = torch.empty(T, dtype=torch.float32, device=dev)
     if jobs.shape[0]:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(
-            dev.index, ref.data_ptr(), ref.numel(), hist.data_ptr(),
-            descs.data_ptr(), descs.stride(0), jobs.data_ptr(), jobs.shape[0],
-            block_w, stage, out.data_ptr(), stream,
-        )
+        # the entry point sets the thread's current device; the guard
+        # gives the caller's back
+        with torch.cuda.device(dev):
+            err = _entry()(
+                dev.index, ref.data_ptr(), ref.numel(), hist.data_ptr(),
+                descs.data_ptr(), descs.stride(0), jobs.data_ptr(),
+                jobs.shape[0], block_w, stage, out.data_ptr(), stream,
+            )
         build.check(err, "ra_dtw_banded_round")
         launches += 1
     return out

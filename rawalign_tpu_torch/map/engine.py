@@ -153,6 +153,9 @@ def _carried_from_chains(chains: list[gchain.Chain]) -> tuple:
 class MappingEngine:
     """Maps batches of raw-signal reads against a RawIndex."""
 
+    #: the DTW tiles' mesh (the distributed engine's); one device here
+    mesh = None
+
     def __init__(
         self,
         index: RawIndex,
@@ -199,6 +202,11 @@ class MappingEngine:
             bool(opt.flag & MappingFlag.DTW_OUTPUT_CIGAR)
             or stage1_impl == "host"
         ) and stage1_impl != "hybrid"
+        # whether the stage1 download leads with the events (the JAX
+        # engine's _s1_dl_events). On one card exactly when the DTW reads
+        # the host pool; the distributed engine reads the pool on every
+        # placement but downloads the events only from the device stage1
+        self._s1_dl_events = self._events_on_host
         # rounds end in the Python tail (per-read chains, B&B replay in
         # Python) instead of the native round finalize
         self._python_tail = (
@@ -335,7 +343,8 @@ class MappingEngine:
                        hist_off: np.ndarray) -> torch.Tensor:
         """Device stage1: ``packed_sig`` (B, chunk_size+1) holds each
         slot's raw chunk | its length; the events are detected on the
-        device, and lead the packed output when the host keeps them."""
+        device, and lead the packed output when the download carries them
+        (``_s1_dl_events``)."""
         opt = self.opt
         L = opt.chunk_size
         x = runtime.put(packed_sig, self.device)
@@ -349,7 +358,7 @@ class MappingEngine:
             max_events=opt.max_events_per_chunk,
         )
         return self._stage1_post(ev.values, ev.n_events, ev.n_dropped, hist,
-                                 hist_off, with_events=self._events_on_host)
+                                 hist_off, with_events=self._s1_dl_events)
 
     def _stage1_post(self, ev_values: torch.Tensor, ev_n: torch.Tensor,
                      ev_nd: torch.Tensor, hist: torch.Tensor,
@@ -361,9 +370,25 @@ class MappingEngine:
         new one back; here it is simply updated. Returns the packed
         stage1 output (B, [ne +] 2*ns + 4), the events first if
         ``with_events``."""
-        io = self.index.opt
-        dev = self.device
         ne = self.opt.max_events_per_chunk
+        h_c, qp_c, v_c, n_compact_dropped = self._compact_seeds(ev_values, ev_n)
+        lo_c, count = query.lookup_bounds(self._bk, h_c)
+        # append this chunk's events to each slot's history row (the
+        # JAX dynamic_update_slice: start clamped so the row fits)
+        off = runtime.put(hist_off.astype(np.int64), self.device)
+        col = off.clamp(0, self._hmax - ne)[:, None] + self._ev_arange
+        hist.scatter_(1, col, ev_values)
+        return self._pack_hits(ev_values, ev_n, ev_nd, lo_c, count, qp_c, v_c,
+                               n_compact_dropped, with_events)
+
+    def _compact_seeds(self, ev_values: torch.Tensor, ev_n: torch.Tensor):
+        """Sketch (minimizers when ``index.opt.w``) and seed compaction:
+        a stable sort of the invalid flag keeps the valid seeds first, in
+        original order, so the host expansion sees anchors in the
+        uncompacted order. Returns the first ns_out columns' (hashes,
+        qpos int32, valid) and each row's seeds beyond ns_out (never
+        looked up)."""
+        io = self.index.opt
         if io.w:
             seeds = sketch.sketch_events_min_batch(
                 ev_values, ev_n, w=io.w, e=io.e, q=io.q, lq=io.lq
@@ -372,18 +397,19 @@ class MappingEngine:
             seeds = sketch.sketch_events_batch(
                 ev_values, ev_n, e=io.e, q=io.q, lq=io.lq
             )
-        # seed compaction before the lookup: a stable sort of the
-        # invalid flag keeps valid seeds first, in original order, so
-        # the host expansion sees anchors in the uncompacted order
         flag = (~seeds.valid).to(torch.int32)
         perm_c = torch.sort(flag, dim=1, stable=True).indices[:, : self._ns_out]
         h_c = seeds.hashes.gather(1, perm_c)
         qp_c = seeds.qpos.gather(1, perm_c).to(torch.int32)
         v_c = seeds.valid.gather(1, perm_c)
         n_valid = seeds.valid.sum(dim=1, dtype=torch.int32)
-        # seeds (never looked up) beyond ns_out
-        n_compact_dropped = (n_valid - self._ns_out).clamp(min=0)
-        lo_c, count = query.lookup_bounds(self._bk, h_c)
+        return h_c, qp_c, v_c, (n_valid - self._ns_out).clamp(min=0)
+
+    def _pack_hits(self, ev_values, ev_n, ev_nd, lo_c, count, qp_c, v_c,
+                   n_compact_dropped, with_events: bool) -> torch.Tensor:
+        """The occurrence cap, the (qpos, count) packing and the
+        hits-first column order on the looked-up seeds, then the packed
+        stage1 output."""
         over = count > self.max_occ
         n_occ_dropped = torch.where(v_c & over, count, 0).sum(
             dim=1, dtype=torch.int32
@@ -395,11 +421,6 @@ class MappingEngine:
         perm2 = stage1_codec.hits_first_perm(cnt_c)
         lo_c = lo_c.gather(1, perm2)
         qc_c = qc_c.gather(1, perm2)
-        # append this chunk's events to each slot's history row (the
-        # JAX dynamic_update_slice: start clamped so the row fits)
-        off = runtime.put(hist_off.astype(np.int64), dev)
-        col = off.clamp(0, self._hmax - ne)[:, None] + self._ev_arange
-        hist.scatter_(1, col, ev_values)
         scalars = torch.stack(
             [ev_n, ev_nd, n_occ_dropped, n_compact_dropped.to(torch.int32)],
             dim=1,
@@ -537,7 +558,7 @@ class MappingEngine:
             yield  # other groups' host work overlaps this device work
             s1 = stage1_codec.unpack_stage1(
                 pending.result(), ne=ne, ns=self._ns_out,
-                events_on_host=self._events_on_host,
+                events_on_host=self._s1_dl_events,
             )
         ev_counts = s1.n_events
         mark("stage_chain")
@@ -819,8 +840,11 @@ class MappingEngine:
         """Device chain DP on ``packed`` (B, 3a+1) int32: seg | target |
         query | n_anchors. Returns (B, 2a) float32: scores | preds
         bitcast."""
+        return self._chain_dp_on(runtime.put(packed, self.device), a)
+
+    def _chain_dp_on(self, x: torch.Tensor, a: int) -> torch.Tensor:
+        """:meth:`_chain_dp` on rows already on their device."""
         opt = self.opt
-        x = runtime.put(packed, self.device)
         dp = chain.chain_dp_batch(
             x[:, :a].contiguous(),
             x[:, a : 2 * a].contiguous(),
@@ -1004,6 +1028,7 @@ class MappingEngine:
             device_max_n=self.dtw_device_max_n,
             device_max_b=self.dtw_device_max_b,
             ev_fetch=ev_fetch,
+            mesh=self.mesh,
         )
         self.counters["dtw_tiles_device"] += len(pend.small_idx)
         self.counters["dtw_tiles_host_large"] += len(pend.large_idx)

@@ -19,6 +19,15 @@ upload; the reference pool and the event history already live there.
 The JAX package padded every class to a power-of-two multiple of 128
 tiles with dummy 1x1 tiles to keep TPU compile shapes few; the CUDA
 kernel has no compile shapes, so nothing is padded.
+
+Over a mesh of devices (``parallel/mesh.py``; the JAX package's
+``dtw_banded_multi_indexed_sharded``, which splits every class's tile axis
+over all devices) the round's small tiles are dealt to the ranks longest
+first (:func:`deal`), so each rank's slice holds about the same longest
+tile and the round costs about its longest tile, and each rank with
+tiles makes one launch on its own device (:func:`run_round_sharded`).
+A tile's cost does not depend on the other tiles of its launch, so the
+costs are bit-identical to the one-launch round.
 """
 
 from __future__ import annotations
@@ -178,6 +187,38 @@ def run_round(ref_dev: torch.Tensor, hist_dev: torch.Tensor,
     )
 
 
+def deal(n: np.ndarray, ranks: int) -> list[np.ndarray]:
+    """The columns of each rank: the tiles ordered by ``n`` (their longer
+    side), longest first (one stable argsort), and tile k of that order
+    to rank k mod ``ranks``."""
+    by_n = np.argsort(-n.astype(np.int64), kind="stable")
+    return [by_n[r::ranks] for r in range(ranks)]
+
+
+def run_round_sharded(mesh, ref_devs: dict, hist_dev: torch.Tensor,
+                      descs: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
+    """A round's (9, N) descriptors dealt over ``mesh``'s ranks
+    (:func:`deal`), one :func:`run_round` launch per rank with tiles on
+    its device against its copy of the reference pool (``ref_devs``: one
+    per distinct device) and of ``hist_dev`` (copied once to each other
+    distinct device that runs tiles). Returns (columns, costs): the
+    costs, gathered onto the mesh's first device, of descriptor columns
+    ``columns``, in that order."""
+    first = mesh.ranks[0]
+    hists = {hist_dev.device: hist_dev}
+    cols, outs = [], []
+    for dev, sel in zip(mesh.ranks, deal(descs[2], mesh.size)):
+        if not sel.size:
+            continue  # fewer tiles than ranks: this rank launches nothing
+        if dev not in hists:
+            hists[dev] = hist_dev.to(dev, non_blocking=True)
+        costs = run_round(ref_devs[dev], hists[dev],
+                          np.ascontiguousarray(descs[:, sel]))
+        outs.append(costs.to(first, non_blocking=True))
+        cols.append(sel)
+    return np.concatenate(cols), torch.cat(outs)
+
+
 @dataclasses.dataclass
 class PendingDtw:
     n: int
@@ -201,13 +242,17 @@ def dtw_submit_indexed(
     device_max_n: int,
     device_max_b: int,
     ev_fetch=None,
+    mesh=None,
 ) -> PendingDtw:
     """Dispatch one round's tiles; collect with :func:`dtw_collect`.
 
     Bases index ``[ref | hist.ravel()]``, where ``hist_dev`` is the event
     history (B, hmax) or a 1-D uploaded event pool. ``ev_fetch(idx, ln)``
     returns ``ln`` of its values at flat index ``idx`` on the host (for
-    the oversized tiles the native library runs)."""
+    the oversized tiles the native library runs). With ``mesh``, the
+    small tiles are dealt over its ranks (:func:`run_round_sharded`) and
+    ``ref_dev`` maps each distinct device of the mesh to its copy of the
+    reference pool."""
     N = a_base.size
     small = (a_len <= device_max_n) & (b_len <= device_max_b)
     small_idx, descs, batches = class_batches(
@@ -215,8 +260,12 @@ def dtw_submit_indexed(
         device_max_n=device_max_n,
     )
     small_costs = None
-    if batches:
+    if batches and mesh is None:
         small_costs = runtime.fetch_async(run_round(ref_dev, hist_dev, descs))
+    elif batches:
+        cols, costs = run_round_sharded(mesh, ref_dev, hist_dev, descs)
+        small_idx = small_idx[cols]
+        small_costs = runtime.fetch_async(costs)
     large_idx = np.nonzero(~small)[0]
     large_costs = None
     if large_idx.size:

@@ -9,9 +9,10 @@ primitives and the device check:
   card is present — the port never carries on on the CPU in its place;
 * :func:`put` uploads a numpy array through pinned memory;
 * :func:`fetch_async` starts a device->host copy into pinned memory on
-  the current stream and records a CUDA event, so the caller can do
-  host work (or advance other pipeline groups) while the copy runs;
-  :meth:`PendingFetch.result` waits on that event only.
+  the current stream of the tensor's device and records a CUDA event
+  there, so the caller can do host work (or advance other pipeline
+  groups) while the copy runs; :meth:`PendingFetch.result` waits on that
+  event only.
 """
 
 from __future__ import annotations
@@ -64,13 +65,15 @@ class PendingFetch:
 
 def fetch_async(t: torch.Tensor) -> PendingFetch:
     """Start copying ``t`` to the host. On CUDA the copy is queued on
-    the current stream behind the work that produces ``t``."""
+    the current stream of ``t``'s device, behind the work that produces
+    ``t``, and the event is recorded there, whichever device is current."""
     if t.device.type != "cuda":
         return PendingFetch(t.detach().clone(), None)
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t.detach(), non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
+    with torch.cuda.device(t.device):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t.detach(), non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(t.device))
     return PendingFetch(host, event)
 
 

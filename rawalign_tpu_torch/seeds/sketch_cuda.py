@@ -73,12 +73,15 @@ def sketch_scan(events: torch.Tensor, n_events: torch.Tensor, *, e: int,
                                   device=dev)
             smem = 0
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(
-            dev.index, events.data_ptr(), n_events.data_ptr(), B, NE, e, q,
-            lq, None if scratch is None else scratch.data_ptr(), smem,
-            hashes.data_ptr(), emit.data_ptr(), oldest.data_ptr(),
-            cnt.data_ptr(), stream,
-        )
+        # the entry point sets the thread's current device; the guard
+        # gives the caller's back
+        with torch.cuda.device(dev):
+            err = _entry()(
+                dev.index, events.data_ptr(), n_events.data_ptr(), B, NE, e,
+                q, lq, None if scratch is None else scratch.data_ptr(), smem,
+                hashes.data_ptr(), emit.data_ptr(), oldest.data_ptr(),
+                cnt.data_ptr(), stream,
+            )
         build.check(err, "ra_sketch_scan")
         launches += 1
     newest = torch.arange(NE, device=dev).expand(B, NE)

@@ -54,7 +54,8 @@ def reruns(device: torch.device, reset: bool = True) -> tuple[int, int]:
     fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     out = (ctypes.c_uint64 * 2)()
-    build.check(fn(device.index, out, int(reset)), "ra_event_reruns")
+    with torch.cuda.device(device):
+        build.check(fn(device.index, out, int(reset)), "ra_event_reruns")
     return int(out[0]), int(out[1])
 
 
@@ -99,13 +100,16 @@ def detect_events(sig: torch.Tensor, length: torch.Tensor, *, w1: int,
                                   device=dev)
             smem = 0
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(
-            dev.index, sig.data_ptr(), sig.stride(0), length.data_ptr(), B, L,
-            w1, w2, threshold1, threshold2, peak_height, max_events,
-            None if scratch is None else scratch.data_ptr(), smem,
-            values.data_ptr(), n_events.data_ptr(), n_dropped.data_ptr(),
-            stream,
-        )
+        # the entry point sets the thread's current device; the guard
+        # gives the caller's back
+        with torch.cuda.device(dev):
+            err = _entry()(
+                dev.index, sig.data_ptr(), sig.stride(0), length.data_ptr(), B,
+                L, w1, w2, threshold1, threshold2, peak_height, max_events,
+                None if scratch is None else scratch.data_ptr(), smem,
+                values.data_ptr(), n_events.data_ptr(), n_dropped.data_ptr(),
+                stream,
+            )
         build.check(err, "ra_event_detect")
         launches += 1
     return events.EventBatch(values=values, n_events=n_events,

@@ -20,9 +20,11 @@ import numpy as np
 import pytest
 import torch
 
-from rawalign_tpu_torch import config, native
+from rawalign_tpu_torch import config, native, runtime
 from rawalign_tpu_torch.golden import events as gevents
 from rawalign_tpu_torch.map import chain, chain_cuda, dtw, dtw_cuda, dtw_family, tiles
+from rawalign_tpu_torch.parallel import mesh as pmesh
+from rawalign_tpu_torch.parallel.dist_engine import DistributedMappingEngine
 from rawalign_tpu_torch.seeds import sketch, sketch_cuda
 from rawalign_tpu_torch.signal import events, events_cuda
 
@@ -417,7 +419,11 @@ def test_dtw_family_on_the_card_matches_cpu(dev, semiglobal, radius):
     assert torch.equal(got.cpu(), want)
 
 
-def _engine_matches_golden(dev, flags=config.MappingFlag.NONE, **modes):
+def _engine_matches_golden(dev, flags=config.MappingFlag.NONE, mesh=None,
+                           **modes):
+    """The engine's PAF on the card equals golden's on every read; with
+    ``mesh`` a (data, shard) layout, the distributed engine's, its ranks
+    all on ``dev``."""
     import re
 
     from rawalign_tpu_torch.golden import engine as gengine
@@ -432,8 +438,13 @@ def _engine_matches_golden(dev, flags=config.MappingFlag.NONE, **modes):
     config.set_opt("viral", io, mo)
     mo.set_flag(config.MappingFlag.DTW_EVALUATE_CHAINS | flags)
     idx = dindex.build_index(ds.seqs, ds.model.pore_vals, io)
-    eng = MappingEngine(idx, mo, device=dev, batch_size=4, chain_window=2048,
-                        max_occ=256, **modes)
+    kw = dict(batch_size=4, chain_window=2048, max_occ=256, **modes)
+    if mesh is None:
+        eng = MappingEngine(idx, mo, device=dev, **kw)
+    else:
+        eng = DistributedMappingEngine(
+            idx, mo, pmesh.make_mesh(*mesh, devices=[dev] * (mesh[0] * mesh[1])),
+            **kw)
     strip = lambda s: re.sub(r"mt:f:[0-9.]+", "mt:f:X", s)  # noqa: E731
     got = {r.read_name: strip(paf.paf_line(r))
            for r in eng.map_reads((r.name, r.signal) for r in ds.reads)}
@@ -463,3 +474,138 @@ def test_cigar_engine_on_the_card_matches_golden(dev):
         dev, config.MappingFlag.DTW_OUTPUT_CIGAR | config.MappingFlag.OUTPUT_CHAINS,
         stage1_impl="device", chain_impl="device")
     assert dtw_cuda.launches > launched
+
+
+@pytest.mark.parametrize("stage1_impl", ["hybrid", "device"])
+def test_distributed_engine_on_a_one_card_mesh_matches_golden(dev, stage1_impl):
+    """Four ranks on one card: the routed stage1, the sharded chain DP and
+    the sharded DTW, one launch per rank a round."""
+    launched = (sketch_cuda.launches, chain_cuda.launches)
+    _engine_matches_golden(dev, mesh=(2, 2), stage1_impl=stage1_impl)
+    assert sketch_cuda.launches > launched[0]
+    assert chain_cuda.launches > launched[1]
+
+
+def test_sharded_dtw_on_a_one_card_mesh_equals_the_one_card_round(dev):
+    rng = np.random.default_rng(8)
+    lref, hist_shape = 20000, (4, 3000)
+    da = _tiles(rng, lref, hist_shape, 300, 1024, False)
+    ref = torch.from_numpy(rng.normal(0, 1, lref).astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.normal(0, 1, hist_shape).astype(np.float32)).to(dev)
+    cols = [da[:, k].astype(np.int32) for k in range(6)]
+    _order, descs, _b = tiles.class_batches(*cols, np.arange(da.shape[0]),
+                                            device_max_n=2048)
+    mesh = pmesh.make_mesh(1, 4, devices=[dev] * 4)
+    before = dtw_cuda.launches
+    order, costs = tiles.run_round_sharded(mesh, {dev: ref}, hist, descs)
+    torch.cuda.synchronize()
+    assert dtw_cuda.launches == before + 4
+    want = tiles.run_round(ref, hist, descs)
+    assert torch.equal(costs, want[torch.from_numpy(order).to(dev)])
+
+
+def test_routed_stage1_on_a_one_card_mesh_equals_the_one_card_stage1(dev):
+    from rawalign_tpu_torch.golden import events as gevents
+    from rawalign_tpu_torch.index import index as dindex
+    from rawalign_tpu_torch.map import stage1_codec
+    from rawalign_tpu_torch.map.engine import MappingEngine
+    from rawalign_tpu_torch.testing import synth
+
+    ds = synth.make_dataset(seed=11, genome_lengths=[9000, 5000], n_reads=8,
+                            read_len_bp=(150, 300))
+    io, mo = config.IndexOptions(), config.MappingOptions()
+    config.set_opt("viral", io, mo)
+    idx = dindex.build_index(ds.seqs, ds.model.pore_vals, io)
+    B, ne = 8, mo.max_events_per_chunk
+    packed = np.zeros((B, ne + 2), np.float32)
+    for i, r in enumerate(ds.reads[:B]):
+        e = gevents.detect_events_fast(r.signal[: mo.chunk_size], mo)
+        packed[i, : min(e.size, ne)] = e[:ne]
+        packed[i, ne] = min(e.size, ne)
+        packed[i, ne + 1] = max(e.size - ne, 0)
+    one = MappingEngine(idx, mo, device=dev, batch_size=B)
+    dist = DistributedMappingEngine(
+        idx, mo, pmesh.make_mesh(2, 4, devices=[dev] * 8), batch_size=B)
+    hist = torch.zeros((B, one._hmax), device=dev)
+    off = np.zeros(B, np.int32)
+    a, b = (stage1_codec.unpack_stage1(
+        runtime.fetch(e._stage1(packed, hist, off)), ne=ne, ns=e._ns_out,
+        events_on_host=False) for e in (one, dist))
+    assert np.array_equal(a.count, b.count)
+    used = a.count > 0
+    assert used.sum() > 50
+    assert np.array_equal(a.lo[used], b.lo[used])
+    assert np.array_equal(a.qpos[used], b.qpos[used])
+    for f in ("n_events", "n_ev_dropped", "n_occ_dropped", "n_compact_dropped"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    one.close()
+    dist.close()
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    prev = torch.cuda.current_device()
+    torch.cuda.set_device(0)
+    yield torch.device("cuda", 1)
+    torch.cuda.set_device(prev)
+
+
+def test_wrappers_keep_the_callers_current_device(two_cards):
+    """Each kernel launched on cuda:1 while cuda:0 is current: the result
+    is the plain version's and cuda:0 is current again afterwards (the
+    entry points set the thread's device themselves)."""
+    c1 = two_cards
+    rng = np.random.default_rng(9)
+    ev, n_ev = _sketch_rows(rng, 16, 300, 6)
+    ev_d, n_d = torch.from_numpy(ev).to(c1), torch.from_numpy(n_ev).to(c1)
+    got = sketch_cuda.sketch_scan(ev_d, n_d, e=6, q=9, lq=3)
+    assert torch.cuda.current_device() == 0
+    want = sketch._sketch_scan(ev_d, n_d, 6, 9, 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    sig = rng.normal(95.0, 15.0, (4, 4000)).astype(np.float32)
+    sig_d = torch.from_numpy(sig).to(c1)
+    lens = torch.full((4,), 4000, dtype=torch.int32, device=c1)
+    got = events_cuda.detect_events(sig_d, lens, max_events=512, **EV_KW)
+    assert torch.cuda.current_device() == 0
+    want = events.detect_events_plain(sig_d, lens, max_events=512, **EV_KW)
+    assert torch.equal(got.n_events, want.n_events)
+    assert _same(got.values, want.values)
+    events_cuda.reruns(c1)
+    assert torch.cuda.current_device() == 0
+
+    seg, tgt, qry, n = _chain_rows(rng, 4, 512)
+    d = [torch.from_numpy(x).to(c1) for x in (seg, tgt, qry, n)]
+    got = chain_cuda.chain_dp(*d, window=64, **CHAIN_KW)
+    assert torch.cuda.current_device() == 0
+    want = chain.chain_dp_plain(*d, window=64, **CHAIN_KW)
+    assert torch.equal(got.scores, want.scores)
+    assert torch.equal(got.preds, want.preds)
+
+    da = _tiles(rng, 5000, (2, 800), 40, 300, False)
+    ref = torch.from_numpy(rng.normal(0, 1, 5000).astype(np.float32)).to(c1)
+    hist = torch.from_numpy(rng.normal(0, 1, (2, 800)).astype(np.float32)).to(c1)
+    cols = [da[:, k].astype(np.int32) for k in range(6)]
+    _o, descs, _b = tiles.class_batches(*cols, np.arange(da.shape[0]),
+                                        device_max_n=2048)
+    got = tiles.run_round(ref, hist, descs)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(got, dtw.dtw_banded_round(
+        ref, hist, torch.from_numpy(descs).to(c1)))
+    assert runtime.device("cuda") == torch.device("cuda", 0)
+
+
+def test_fetch_async_waits_for_the_tensors_own_card(two_cards):
+    """A fetch of a cuda:1 tensor made while cuda:0 is current, right
+    behind a long chain launch on cuda:1, returns the finished values."""
+    c1 = two_cards
+    rng = np.random.default_rng(10)
+    seg, tgt, qry, n = _chain_rows(rng, 2, 1 << 17)
+    d = [torch.from_numpy(x).to(c1) for x in (seg, tgt, qry, n)]
+    got = chain_cuda.chain_dp(*d, window=2048, **CHAIN_KW)
+    host = runtime.fetch_async(got.scores).result()
+    torch.cuda.synchronize(c1)
+    np.testing.assert_array_equal(host, got.scores.cpu().numpy())
+    assert (host > 0).any()
