@@ -24,7 +24,11 @@ Phases (each raises on failure; the script then exits non-zero):
    a round, against the per-class plain version, the plain round and
    native (each class's tile count and longest n logged, and the
    recurrence floor: the longest tile's n-1 iterations at the time per
-   iteration it takes alone) — and timed beside them; then
+   iteration it takes alone) — and timed beside them; the non-indexed
+   dispatch (``tiles.dtw_banded_pairs``, the JAX package's
+   ``dtw_banded_multi``) on the same two rounds as raw pairs and on 64
+   tiles of n 4096 at a 10% band (``tools/check_dtw.py``'s), bit for bit
+   against native, one launch a call; then
    the launch counters are zeroed and a timed pass maps every read
    again. It fails if either kernel was not launched in that pass, if
    the DTW kernel took other than one launch in each round that had
@@ -78,14 +82,24 @@ Phases (each raises on failure; the script then exits non-zero):
    one-card stage1 on a captured round, and phase 4's captured DTW round,
    dealt over the ranks, to the one-launch round bit for bit. It logs
    reads/s beside phases 4 and 5, the all-to-all bytes a round and each
-   rank's longest DTW tile.
+   rank's longest DTW tile;
+8. the fused stage1+chain (``fused=True``, device stage1 and chain) at
+   ``max_anchors=65536``, where the widest first round stays fused: a
+   warm and a timed pass whose 256 PAF lines must equal phase 5's, with
+   no escalation, a DP prefix refetch in each chained round, the event,
+   sketch and chain kernels launched once a round and the DTW kernel
+   once a round with device tiles; it logs reads/s beside phases 4 and 5
+   and the chain-upload bytes the fused rounds no longer send. Then one
+   pass at the default budget (2048), whose wide rows escalate, against
+   the unfused all-device engine at the same ceiling: equal PAFs.
 
 ``python3 -c 'import chip_smoke; chip_smoke.distributed_only()'`` runs
 phases 1-3, the timed passes of 4 and 5 and phase 7 alone (a minute or
 two), for a machine with four cards.
 
-Every kernel's record carries its time, its plain version's, and its
-bound: the larger of the bytes its launch must move at the card's memory
+Every kernel's record carries its time, its plain version's, its
+launches in the timed passes of phases 5 and 8 (the all-device and the
+fused path), and its bound: the larger of the bytes its launch must move at the card's memory
 rate and the operations this run's data needs at its scalar rate (see
 ``bound``).
 The last two lines are the kernels' JSON record and
@@ -431,6 +445,47 @@ def _synthetic_dtw_rows(rng, lref):
     return np.asarray(rows, np.int64)
 
 
+#: tools/check_dtw.py's performance mode at its documented band: a
+#: radius of 10% of the read side, values uniform in [-2.5, 2.5]
+CHECK_DTW_N = 4096
+CHECK_DTW_TILES = 64
+CHECK_DTW_FRAC = 0.1
+
+
+def _check_dtw_pairs(label: str, pairs, device, reps: int) -> float:
+    """The non-indexed dispatch (``tiles.dtw_banded_pairs``, every pair
+    on the card) against ``native.dtw_banded_batch`` bit for bit, in one
+    launch a call; returns the median milliseconds of a call (host
+    layout, upload, launch and fetch)."""
+    import numpy as np
+
+    from rawalign_tpu_torch import native
+    from rawalign_tpu_torch.map import dtw_cuda, tiles
+
+    kw = dict(device=device, device_max_n=CHECK_DTW_N, device_max_b=CHECK_DTW_N)
+    before = dtw_cuda.launches
+    got = tiles.dtw_banded_pairs(pairs, **kw)
+    if dtw_cuda.launches != before + 1:
+        raise RuntimeError(f"dtw_banded_pairs ({label}) took "
+                           f"{dtw_cuda.launches - before} launches, not one")
+    if not np.array_equal(got, native.dtw_banded_batch(pairs)):
+        raise RuntimeError(f"dtw_banded_pairs ({label}) disagrees with "
+                           "native.dtw_banded_batch")
+    ms, _ = cuda_ms(lambda: tiles.dtw_banded_pairs(pairs, **kw), reps)
+    log(f"[dtw pairs] {label}: {len(pairs)} pairs, longest "
+        f"{max(max(p[0].size, p[1].size) for p in pairs)}, one launch, "
+        f"bit-identical to native; {ms:.4f} ms a call (layout, upload, launch, "
+        "fetch)")
+    return ms
+
+
+def _rows_as_pairs(pool, da):
+    """Descriptor rows (a_base, a_len, b_base, b_len, radius, excl) over
+    ``pool`` as raw (a, b, radius, exclude_last) pairs, a the longer."""
+    return [(pool[a : a + n], pool[b : b + m], int(r), bool(x))
+            for a, n, b, m, r, x in da]
+
+
 def check_dtw(engine, captured, device, reps: int = 10) -> dict:
     import numpy as np
     import torch
@@ -462,6 +517,28 @@ def check_dtw(engine, captured, device, reps: int = 10) -> dict:
     syn = _dtw_round(syn_ref, syn_hist, syn_da, 2048, 3)
     vs_native("synthetic mix", syn_ref_host, syn_hist, syn_da, syn)
     _dtw_log(f"synthetic mix up to {SYNTH_MAX_LEN}", syn)
+
+    # the non-indexed dispatch (row 1c) on the same tiles as raw pairs,
+    # and on tools/check_dtw.py's long tiles
+    pool = np.concatenate([engine._ref_cat_host, hist.cpu().numpy().reshape(-1)])
+    pairs_ms = _check_dtw_pairs("phase 4's first round",
+                                _rows_as_pairs(pool, da), device, reps)
+    syn_pool = np.concatenate([syn_ref_host, syn_hist.cpu().numpy().reshape(-1)])
+    _check_dtw_pairs("synthetic mix", _rows_as_pairs(syn_pool, syn_da), device, 3)
+    rng = np.random.default_rng(2)
+    radius = max(1, int(CHECK_DTW_N * CHECK_DTW_FRAC))
+    long_pairs = [
+        (rng.uniform(-2.5, 2.5, CHECK_DTW_N).astype(np.float32),
+         rng.uniform(-2.5, 2.5, int(rng.integers(3 * CHECK_DTW_N // 4,
+                                                 CHECK_DTW_N + 1))).astype(np.float32),
+         radius, bool(k % 2))
+        for k in range(CHECK_DTW_TILES)
+    ]
+    _check_dtw_pairs(f"{CHECK_DTW_TILES} tiles of n {CHECK_DTW_N}, radius {radius}",
+                     long_pairs, device, 3)
+    log(f"[dtw] row 1c, the non-indexed dispatch: {pairs_ms:.4f} ms a call on "
+        f"phase 4's first round, against {r['ms']:.4f} ms for the indexed "
+        "one-launch kernel call on its descriptors")
     return dict(ms=r["ms"], plain_ms=r["plain_ms"], max_abs_err=max(r["err"], syn["err"]),
                 bound_ms=r["bound"][0], bound_by=r["bound"][1])
 
@@ -1246,6 +1323,106 @@ def phase7(device, idx, mo, reads, device_lines: dict, single, ref_cat,
     log(f"[7] phase 7 in {time.perf_counter() - t0:.1f} s")
 
 
+#: the budget at which the dataset's widest first round (52,208 anchors)
+#: stays in the fused chain DP: phase 5 grows A to the same 65,536
+FUSED_ANCHORS = 65536
+
+
+def phase8(device, idx, mo, reads, device_lines: dict, rates: dict,
+           smi: str) -> dict:
+    """Phase 8: the fused stage1+chain (``fused=True``) on the device
+    stage1 and chain placements. A warm and a timed pass at
+    ``max_anchors=FUSED_ANCHORS``: all PAF lines must equal phase 5's,
+    no round may escalate, every round must refetch its DP prefix, the
+    event, sketch and chain kernels must launch once a fused round and
+    the DTW kernel once a round with device tiles. Then one pass at the
+    default budget against the unfused all-device engine at the same
+    ceiling: equal PAFs, escalations logged. Returns the timed pass's
+    launches."""
+    import torch
+
+    from rawalign_tpu_torch.map import chain_cuda, dtw_cuda
+    from rawalign_tpu_torch.map.engine import MappingEngine
+    from rawalign_tpu_torch.seeds import sketch_cuda
+    from rawalign_tpu_torch.signal import events_cuda
+
+    t0 = time.perf_counter()
+    counters = {"event_detect": events_cuda, "sketch_scan": sketch_cuda,
+                "chain_dp": chain_cuda, "dtw_banded": dtw_cuda}
+    modes = dict(device=device, batch_size=32, pipeline_depth=8,
+                 stage1_impl="device", chain_impl="device")
+    with MappingEngine(idx, mo, fused=True, max_anchors=FUSED_ANCHORS,
+                       **modes) as eng:
+        calls = {"fused": 0, "unfused": 0}
+        widths = []
+        stage1_fused, stage1_device = eng._stage1_fused, eng._stage1_device
+        dp_prefix = eng._dp_prefix
+
+        def count_fused(*a):
+            calls["fused"] += 1
+            return stage1_fused(*a)
+
+        def count_unfused(*a):
+            calls["unfused"] += 1
+            return stage1_device(*a)
+
+        def count_prefix(dp_full, w):
+            widths.append(w)
+            return dp_prefix(dp_full, w)
+
+        eng._stage1_fused, eng._stage1_device = count_fused, count_unfused
+        eng._dp_prefix = count_prefix
+        t1 = time.perf_counter()
+        list(eng.map_reads(reads))
+        torch.cuda.synchronize()
+        log(f"[8 fused] warm pass {time.perf_counter() - t1:.2f} s")
+        calls.update(fused=0, unfused=0)
+        widths.clear()
+        res, launches, rate = timed_pass(eng, reads, counters, "8 fused", smi)
+        c = eng.counters
+        same_lines("8 fused", lines_of(res), device_lines, "phase 5's")
+        rounds = calls["fused"] + calls["unfused"]
+        want = {"event_detect": rounds, "sketch_scan": rounds,
+                "chain_dp": calls["fused"]}
+        if (c["fused_escalations"] or not c["fused_refetches"]
+                or calls["unfused"] or any(launches[k] != v
+                                           for k, v in want.items())):
+            raise RuntimeError(f"8 fused: escalations {c['fused_escalations']}, "
+                               f"refetches {c['fused_refetches']}, rounds "
+                               f"{calls}, launches {launches} (want {want})")
+        B = eng.batch_size
+        # the all-device path uploads (B, 3a + 1) int32 anchors a chained
+        # round, a the prefix width the fused round refetched; the fused
+        # round uploads (B, 3C + 2) int32 carried anchors in their place
+        saved = sum(4 * B * (3 * w + 1) for w in widths)
+        added = 4 * B * (3 * eng._fused_c + 2) * calls["fused"]
+        log(f"[8 fused] all {len(res)} PAF lines byte-identical to phase 5's; "
+            f"{calls['fused']} fused rounds, 0 escalations, {c['fused_refetches']}"
+            f" DP prefix refetches (widths {sorted(set(widths))}); chain "
+            f"uploads no longer made {saved} bytes ({saved / max(len(widths), 1):.0f}"
+            f" a chained round), carried uploads added {added} bytes; "
+            f"{rate:.2f} reads/s against phase "
+            + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()) + f" on {smi}")
+
+    # the default budget: the wide rounds escalate to the unfused chain DP
+    with MappingEngine(idx, mo, fused=True, **modes) as eng:
+        t1 = time.perf_counter()
+        got = lines_of(eng.map_reads(reads))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        esc, rounds = eng.counters["fused_escalations"], eng.phase_times["rounds"]
+    with MappingEngine(idx, mo, max_anchors_ceiling=eng.max_anchors,
+                       **modes) as ref:
+        same_lines("8 default budget", got, lines_of(ref.map_reads(reads)),
+                   f"the unfused all-device engine at ceiling {eng.max_anchors}")
+    log(f"[8 fused] default budget A={eng.max_anchors}: all {len(got)} PAF lines "
+        f"byte-identical to the unfused all-device engine at the same ceiling; "
+        f"{esc} of {rounds} rounds escalated; {len(got) / dt:.2f} reads/s "
+        "(one pass, the first of its engine)")
+    log(f"[8] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run(device, name: str, smi: str, t_start: float) -> None:
     """Phases 4 to 6 on ``device``; prints the two result lines."""
     import torch
@@ -1342,13 +1519,18 @@ def run(device, name: str, smi: str, t_start: float) -> None:
         f"hybrid pass (mt:f stripped), the first {N_GOLDEN} to golden.engine")
 
     phase6(device, ds, idx, mo, reads, hybrid, smi)
+    rates = {"4 hybrid": hybrid_rate, "5 all-device": device_rate}
     phase7(device, idx, mo, reads, device_lines, engine, ref_cat, captured[0],
-           {"4 hybrid": hybrid_rate, "5 all-device": device_rate}, smi)
+           rates, smi)
+    fused_launches = phase8(device, idx, mo, reads, device_lines, rates, smi)
+    log(f"[smoke] launches: phase 5's timed pass {launches}, phase 8's "
+        f"{fused_launches}")
 
     def rec(kname, src, replaces, r):
         return {"name": kname, "route": "cuda",
                 "source": f"rawalign_tpu_torch/csrc/{src}",
-                "replaces": replaces, "launches": launches[kname],
+                "replaces": replaces,
+                "launches": launches[kname] + fused_launches[kname],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],

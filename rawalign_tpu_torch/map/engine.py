@@ -46,10 +46,25 @@ at every device wait, so one group's host work overlaps another group's
 device work. Slots are position-stable and refilled as reads finish
 (continuous batching).
 
-``"auto"`` picks the native placement when the native library has it, as
-the JAX engine does. ``fused=True`` raises ``NotImplementedError``; a
-native library without what the chosen placements need raises
-``RuntimeError``.
+``fused=True`` (with the device stage1) runs the fused stage1+chain of
+the JAX engine: one device stage runs the events, sketch, lookup, the
+hit expansion, the carried-anchor merge, the 4-key sort, the occ-ranked
+drop to ``max_anchors`` (``map/fused.py``) and the chain DP (CUDA chain
+kernel), so the round uploads the raw chunks and its carried anchors,
+not the anchors. The host replays the expansion from the stage1 blocks
+it downloads (same order, same drop), fetches a prefix of the
+device-resident DP output as wide as its widest row, and finishes the
+round in the Python tail. A row with more hits and carried anchors than
+``2 * max_anchors`` escalates to the unfused chain DP of the chain
+placement; a round with more carried anchors than ``min(512,
+max_carried)`` runs unfused.
+
+``"auto"`` resolves as the JAX engine does: the hybrid stage1 when the
+native library has the event detector and ``fused`` is off, else the
+device stage1 (``fused=True`` with ``stage1_impl="hybrid"`` raises
+``ValueError``); the native chain DP when the library has it and its
+round tail, else the device chain DP. A native library without what
+the chosen placements need raises ``RuntimeError``.
 """
 
 from __future__ import annotations
@@ -71,7 +86,7 @@ from rawalign_tpu_torch.index import query
 from rawalign_tpu_torch.index.index import RawIndex
 from rawalign_tpu_torch.io import paf
 from rawalign_tpu_torch.map import anchors as manchors
-from rawalign_tpu_torch.map import chain, postprocess, stage1_codec, tiles
+from rawalign_tpu_torch.map import chain, fused as mfused, postprocess, stage1_codec, tiles
 from rawalign_tpu_torch.map.postprocess import BorderConstraint, FillMethod
 from rawalign_tpu_torch.seeds import sketch
 from rawalign_tpu_torch.signal import events
@@ -166,14 +181,15 @@ class MappingEngine:
         max_occ: int = 4096,
         max_anchors: int = 2048,
         max_anchors_ceiling: int | None = None,
+        max_carried: int = 1024,
         chain_window: int = 64,
         pipeline_depth: int = 2,
         seeds_out: int = 768,
         dtw_device_max_n: int = 2048,
         dtw_device_max_b: int = 2048,
         mt_mode: str = "share",
-        chain_impl: str = "native",
-        stage1_impl: str = "hybrid",
+        chain_impl: str = "auto",
+        stage1_impl: str = "auto",
         fused: bool = False,
     ):
         if chain_impl not in ("auto", "native", "device"):
@@ -182,18 +198,24 @@ class MappingEngine:
             raise ValueError(
                 f"stage1_impl must be auto|hybrid|device|host: {stage1_impl}"
             )
-        if fused:
-            raise NotImplementedError("fused stage1+chain is not ported")
         if mt_mode not in ("share", "wall"):
             raise ValueError(f"mt_mode must be share|wall: {mt_mode}")
         if chain_impl == "auto":
+            # the native chain DP only with the native round tail beside it
             chain_impl = (
                 "native"
                 if native.chain_dp_available() and native.round_tail_available()
                 else "device"
             )
         if stage1_impl == "auto":
-            stage1_impl = "hybrid" if native.events_available() else "device"
+            # the fused stage needs the raw signal on the device
+            stage1_impl = (
+                "hybrid"
+                if native.available() and native.events_available() and not fused
+                else "device"
+            )
+        if fused and stage1_impl == "hybrid":
+            raise ValueError("fused=True requires stage1_impl='device'")
         # CIGAR output reads each read's events on the host at emit: the
         # hybrid and host stage1 detect them there, the device stage1
         # then ships them in its download and the DTW reads a per-round
@@ -209,8 +231,11 @@ class MappingEngine:
         self._s1_dl_events = self._events_on_host
         # rounds end in the Python tail (per-read chains, B&B replay in
         # Python) instead of the native round finalize
+        # (every round under fused: its rounds end there, as in the JAX
+        # engine, and one tail keeps a read's state in one form)
         self._python_tail = (
             bool(opt.flag & PYTHON_TAIL_FLAGS) or self._events_on_host
+            or bool(fused)
         )
         # anchor expansion, oversized DTW tiles and the traceback run in
         # the native library on every path
@@ -287,6 +312,20 @@ class MappingEngine:
         self._h_val_id = np.asarray(index.val_id)
         self._h_val_ps = np.asarray(index.val_ps)
         self._ev_arange = torch.arange(ne, device=self.device)
+        # the fused stage1+chain (device stage1 only): the DP at the
+        # anchor budget, hits expanded to twice it, up to _fused_c
+        # carried anchors, and _fused_p columns of scores and preds in
+        # the stage1 download (0: every round fetches the prefix it needs)
+        self.max_carried = max_carried
+        self._fused = bool(fused) and stage1_impl == "device"
+        self._fused_w = max_anchors
+        self._fused_exp = 2 * max_anchors
+        self._fused_c = min(512, max_carried)
+        self._fused_p = 0
+        if self._fused:
+            # the index's value table on the device (int32 bits)
+            self._val_id = runtime.put(self._h_val_id.view(np.int32), self.device)
+            self._val_ps = runtime.put(self._h_val_ps.view(np.int32), self.device)
 
         self.counters = {
             "seed_hits_compact_dropped": 0,
@@ -299,6 +338,8 @@ class MappingEngine:
             "dtw_cells": 0,
             "dtw_tiles_device": 0,
             "dtw_tiles_host_large": 0,
+            "fused_escalations": 0,
+            "fused_refetches": 0,
         }
         # wall-clock seconds per engine phase
         self.phase_times = {
@@ -370,6 +411,15 @@ class MappingEngine:
         new one back; here it is simply updated. Returns the packed
         stage1 output (B, [ne +] 2*ns + 4), the events first if
         ``with_events``."""
+        return stage1_codec.pack_stage1(
+            *self._stage1_blocks(ev_values, ev_n, ev_nd, hist, hist_off),
+            ev_values if with_events else None,
+        )
+
+    def _stage1_blocks(self, ev_values: torch.Tensor, ev_n: torch.Tensor,
+                       ev_nd: torch.Tensor, hist: torch.Tensor,
+                       hist_off: np.ndarray):
+        """:meth:`_stage1_post` up to the packing: (lo, qc, scalars)."""
         ne = self.opt.max_events_per_chunk
         h_c, qp_c, v_c, n_compact_dropped = self._compact_seeds(ev_values, ev_n)
         lo_c, count = query.lookup_bounds(self._bk, h_c)
@@ -378,8 +428,8 @@ class MappingEngine:
         off = runtime.put(hist_off.astype(np.int64), self.device)
         col = off.clamp(0, self._hmax - ne)[:, None] + self._ev_arange
         hist.scatter_(1, col, ev_values)
-        return self._pack_hits(ev_values, ev_n, ev_nd, lo_c, count, qp_c, v_c,
-                               n_compact_dropped, with_events)
+        return self._hit_blocks(ev_n, ev_nd, lo_c, count, qp_c, v_c,
+                                n_compact_dropped)
 
     def _compact_seeds(self, ev_values: torch.Tensor, ev_n: torch.Tensor):
         """Sketch (minimizers when ``index.opt.w``) and seed compaction:
@@ -407,9 +457,18 @@ class MappingEngine:
 
     def _pack_hits(self, ev_values, ev_n, ev_nd, lo_c, count, qp_c, v_c,
                    n_compact_dropped, with_events: bool) -> torch.Tensor:
+        """:meth:`_hit_blocks`, then the packed stage1 output."""
+        return stage1_codec.pack_stage1(
+            *self._hit_blocks(ev_n, ev_nd, lo_c, count, qp_c, v_c,
+                              n_compact_dropped),
+            ev_values if with_events else None,
+        )
+
+    def _hit_blocks(self, ev_n, ev_nd, lo_c, count, qp_c, v_c,
+                    n_compact_dropped):
         """The occurrence cap, the (qpos, count) packing and the
-        hits-first column order on the looked-up seeds, then the packed
-        stage1 output."""
+        hits-first column order on the looked-up seeds: (lo, qc,
+        scalars)."""
         over = count > self.max_occ
         n_occ_dropped = torch.where(v_c & over, count, 0).sum(
             dim=1, dtype=torch.int32
@@ -425,8 +484,58 @@ class MappingEngine:
             [ev_n, ev_nd, n_occ_dropped, n_compact_dropped.to(torch.int32)],
             dim=1,
         )
-        return stage1_codec.pack_stage1(
-            lo_c, qc_c, scalars, ev_values if with_events else None
+        return lo_c, qc_c, scalars
+
+    def _stage1_fused(self, packed_sig: np.ndarray, carried_in: np.ndarray,
+                      hist: torch.Tensor, hist_off: np.ndarray):
+        """The fused stage1+chain: :meth:`_stage1_device`'s events,
+        sketch, lookup and history append, then ``map/fused.py``'s
+        anchors from the stage1 blocks and ``carried_in`` (B, 3C+2) int32,
+        and the chain DP at width ``_fused_w``, all queued on the device
+        with no wait on the host. Returns (packed, dp_full): the stage1
+        row with ``_fused_p`` columns of scores and preds
+        (``stage1_codec.pack_stage1_fused``), and the whole DP output
+        (B, 2A) scores | preds bitcast, which stays on the device."""
+        opt = self.opt
+        L = opt.chunk_size
+        x = runtime.put(packed_sig, self.device)
+        ev = events.detect_events_batch(
+            x[:, :L], x[:, L].to(torch.int32),
+            w1=opt.window_length1,
+            w2=opt.window_length2,
+            threshold1=opt.threshold1,
+            threshold2=opt.threshold2,
+            peak_height=opt.peak_height,
+            max_events=opt.max_events_per_chunk,
+        )
+        lo_c, qc_c, scalars = self._stage1_blocks(
+            ev.values, ev.n_events, ev.n_dropped, hist, hist_off
+        )
+        anchors, n_dp = mfused.fused_anchors(
+            lo_c, qc_c, runtime.put(carried_in, self.device),
+            self._val_id, self._val_ps, a=self._fused_w, a_exp=self._fused_exp,
+        )
+        dp = chain.chain_dp_batch(
+            anchors.seg, anchors.tgt, anchors.qry, n_dp,
+            window=self.chain_window,
+            e=self.index.opt.e,
+            max_gap=opt.max_gap_length,
+            max_target_gap=opt.max_target_gap_length,
+            max_skips=opt.max_num_skips,
+        )
+        P = self._fused_p
+        packed = stage1_codec.pack_stage1_fused(
+            lo_c, qc_c, scalars, ev.values if self._s1_dl_events else None,
+            dp.scores[:, :P], dp.preds[:, :P],
+        )
+        return packed, torch.cat([dp.scores, dp.preds.view(torch.float32)], dim=1)
+
+    def _dp_prefix(self, dp_full: torch.Tensor, w: int) -> runtime.PendingFetch:
+        """Start fetching the ``w``-column prefix of the device-resident
+        fused DP output: (B, 2w) scores | preds bitcast."""
+        A = self._fused_w
+        return runtime.fetch_async(
+            torch.cat([dp_full[:, :w], dp_full[:, A : A + w]], dim=1)
         )
 
     # ------------------------------------------------------------------
@@ -505,6 +614,8 @@ class MappingEngine:
         L = opt.chunk_size
         ne = opt.max_events_per_chunk
         hist_off = np.zeros(B, dtype=np.int32)
+        # carried anchors are gathered now: the fused stage uploads them,
+        # and the host replay reuses these arrays, so both see one order
         carried_lists: dict[int, tuple] = {}
         live: list = []
         for i, st in enumerate(slots):
@@ -516,6 +627,9 @@ class MappingEngine:
                 carried_lists[i] = st.carried
             elif st.chains:
                 carried_lists[i] = _carried_from_chains(st.chains)
+        max_car = max((c[0].size for c in carried_lists.values()), default=0)
+        use_fused = self._fused and max_car <= self._fused_c
+        fused_out = None
 
         if self.stage1_impl == "host":
             # no device round trip: the round's only device work is DTW
@@ -554,12 +668,36 @@ class MappingEngine:
             if hist is None:
                 hist = torch.zeros((B, self._hmax), device=self.device)
                 self._group_hist[g] = hist
-            pending = runtime.fetch_async(stage1(packed_in, hist, hist_off))
+            if use_fused:
+                C = self._fused_c
+                carried_in = np.zeros((B, 3 * C + 2), dtype=np.int32)
+                for i, (cs, ct, cq) in carried_lists.items():
+                    m = cs.size
+                    carried_in[i, :m] = cs
+                    carried_in[i, C : C + m] = ct
+                    carried_in[i, 2 * C : 2 * C + m] = cq
+                    carried_in[i, 3 * C] = m
+                for i, st in enumerate(slots):
+                    if st is not None:
+                        carried_in[i, 3 * C + 1] = st.offset
+                out, dp_full = self._stage1_fused(packed_in, carried_in, hist,
+                                                  hist_off)
+            else:
+                out = stage1(packed_in, hist, hist_off)
+            pending = runtime.fetch_async(out)
             yield  # other groups' host work overlaps this device work
-            s1 = stage1_codec.unpack_stage1(
-                pending.result(), ne=ne, ns=self._ns_out,
-                events_on_host=self._s1_dl_events,
-            )
+            if use_fused:
+                sf = stage1_codec.unpack_stage1_fused(
+                    pending.result(), ne=ne, ns=self._ns_out, a=self._fused_p,
+                    events_on_host=self._s1_dl_events,
+                )
+                s1 = sf.stage1
+                fused_out = (sf.scores, sf.preds, dp_full)
+            else:
+                s1 = stage1_codec.unpack_stage1(
+                    pending.result(), ne=ne, ns=self._ns_out,
+                    events_on_host=self._s1_dl_events,
+                )
         ev_counts = s1.n_events
         mark("stage_chain")
         self.counters["events_dropped"] += int(s1.n_ev_dropped.sum())
@@ -578,6 +716,7 @@ class MappingEngine:
                 st.events = np.concatenate([st.events, s1.ev_values[i, :n_ev]])
         yield from self._round_tail(
             slots, g, carried_lists, chain_this_round, s1, mark, charge_round,
+            fused_out,
         )
 
     # ------------------------------------------------------------------
@@ -641,11 +780,13 @@ class MappingEngine:
 
     # ------------------------------------------------------------------
     def _round_tail(self, slots, g, carried_lists, chain_this_round, s1,
-                    mark, charge_round):
+                    mark, charge_round, fused_out=None):
         """Anchor expansion -> chain DP -> traceback, DTW and decisions
         on one round's stage1 output ``s1``: in host C on the worker pool
         (native chain and round tail), or ending in the Python tail
-        (device chain, or a flag in ``PYTHON_TAIL_FLAGS``)."""
+        (device chain, fused, or a flag in ``PYTHON_TAIL_FLAGS``).
+        ``fused_out`` is a fused round's (scores, preds) prefix and
+        device-resident DP output."""
         opt = self.opt
         B = self.batch_size
         h_count = s1.count
@@ -660,14 +801,15 @@ class MappingEngine:
             charge_round()
             return
         # lossless sizing: grow A to the round's anchor demand (hits +
-        # carried), up to the ceiling
+        # carried), up to the ceiling; a fused round replays the device's
+        # drop at max_anchors instead
         A = self.max_anchors
         need = h_count.sum(axis=1, dtype=np.int64)
         for i, cl in carried_lists.items():
             need[i] += cl[0].size
         check_expand_bound(need, chain_this_round)
         nmax = int(need[chain_this_round].max())
-        if nmax > A:
+        if nmax > A and fused_out is None:
             A = 1 << int(np.ceil(np.log2(nmax)))
         A = min(A, self.max_anchors_ceiling)
         seg_b = np.full((B, A), np.int32(0x7FFFFFFF), dtype=np.int32)
@@ -717,7 +859,8 @@ class MappingEngine:
                 per_read[int(i)] = chains
             return per_read
 
-        if self.chain_impl == "native" and not opt.flag & LOG_FLAGS:
+        if (self.chain_impl == "native" and fused_out is None
+                and not opt.flag & LOG_FLAGS):
             # the whole host tail on the worker pool; the anchor logs
             # stay on this thread to keep their order, as in the JAX engine
             def work():
@@ -770,17 +913,39 @@ class MappingEngine:
         # the other groups go on, as the native path's tail does
         in_order = bool(opt.flag & (LOG_FLAGS | MappingFlag.DTW_LOG_SCORES))
         if in_order:
-            max_used, _max_true, dropped = expand()
+            max_used, max_true, dropped = expand()
         else:
             fut = self._pool.submit(expand)
             yield
-            max_used, _max_true, dropped = fut.result()
+            max_used, max_true, dropped = fut.result()
         self.counters["anchors_dropped"] += dropped
         if opt.flag & LOG_FLAGS:
             self._log_anchors(slots, chain_this_round, seg_b, tgt_b, qry_b,
                               n_anch, s1)
         mark("host_anchors")
-        if self.chain_impl == "native":
+        fused_dp = fused_out is not None and max_true <= self._fused_exp
+        if fused_out is not None and not fused_dp:
+            # a row outgrew the expansion width: the chain placement's DP
+            self.counters["fused_escalations"] += 1
+        if fused_dp:
+            # the device DP chained exactly the anchors the host replayed
+            fused_scores, fused_preds, dp_full = fused_out
+            if max_used <= self._fused_p:
+                scores, preds = fused_scores, fused_preds
+            else:
+                # a prefix as wide as the widest row, from 256 by powers
+                # of two
+                self.counters["fused_refetches"] += 1
+                w = 256
+                while w < max_used:
+                    w *= 2
+                w = min(w, self._fused_w)
+                pending = self._dp_prefix(dp_full, w)
+                yield
+                wide = pending.result()
+                scores = wide[:, :w]
+                preds = wide.view(np.int32)[:, w:]
+        elif self.chain_impl == "native":
             scores, preds = chain_dp_native()
         else:
             # the anchor axis bucketed to powers of two from 256

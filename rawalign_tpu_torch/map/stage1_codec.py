@@ -21,8 +21,11 @@ n_compact_dropped (valid seeds beyond the compaction width).
 The event block rides the download only when the host needs the event
 values and did not detect them itself: the device stage1 with CIGAR
 output (the JAX engine's ``_s1_dl_events``). On the hybrid path the host
-already holds them. The fused stage1+chain layout of the original is not
-ported, and nor are its functions.
+already holds them.
+
+The fused stage1+chain (``MappingEngine(fused=True)``) appends the chain
+DP's first ``a`` columns of scores and of predecessors (bitcast) to the
+same row: :func:`pack_stage1_fused` and :func:`unpack_stage1_fused`.
 """
 
 from __future__ import annotations
@@ -92,6 +95,20 @@ def pack_stage1(lo: torch.Tensor, qc: torch.Tensor, scalars: torch.Tensor,
     return torch.cat(parts, dim=1)
 
 
+def pack_stage1_fused(lo: torch.Tensor, qc: torch.Tensor,
+                      scalars: torch.Tensor, ev_values: torch.Tensor | None,
+                      scores: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+    """The fused stage1+chain layout: :func:`pack_stage1`'s row followed
+    by the chain DP's ``scores`` (B, a) float32 and ``preds`` (B, a)
+    int32 bitcast. The host replays the expansion from (lo, qc) and reads
+    scores and preds only when its replayed anchor count fits ``a``."""
+    return torch.cat([
+        pack_stage1(lo, qc, scalars, ev_values),
+        scores.to(torch.float32),
+        preds.to(torch.int32).contiguous().view(torch.float32),
+    ], dim=1)
+
+
 class Stage1Host(NamedTuple):
     """Host view of one round's unpacked stage1 output."""
 
@@ -131,3 +148,28 @@ def unpack_stage1(packed: np.ndarray, *, ne: int, ns: int,
         n_occ_dropped=pi[:, -2],
         n_compact_dropped=pi[:, -1],
     )
+
+
+class Stage1FusedHost(NamedTuple):
+    stage1: Stage1Host
+    scores: np.ndarray  # (B, a) f32
+    preds: np.ndarray  # (B, a) int32
+
+
+def unpack_stage1_fused(packed: np.ndarray, *, ne: int, ns: int, a: int,
+                        events_on_host: bool) -> Stage1FusedHost:
+    """Decode :func:`pack_stage1_fused`'s fetched row."""
+    base = (ne if events_on_host else 0) + 2 * ns + N_SCALARS
+    if packed.shape[1] != base + 2 * a:
+        raise ValueError(
+            f"fused stage1 packed width {packed.shape[1]} != expected "
+            f"{base + 2 * a} (ne={ne}, ns={ns}, a={a}, "
+            f"events_on_host={events_on_host}) — producer/consumer "
+            "layout drift"
+        )
+    s1 = unpack_stage1(
+        packed[:, :base], ne=ne, ns=ns, events_on_host=events_on_host
+    )
+    scores = packed[:, base : base + a]
+    preds = packed.view(np.int32)[:, base + a :]
+    return Stage1FusedHost(stage1=s1, scores=scores, preds=preds)

@@ -1,5 +1,4 @@
-"""DTW tile dispatch in descriptor form (port of the indexed path of
-rawalign_tpu/map/tiles.py).
+"""DTW tile dispatch in descriptor form (port of rawalign_tpu/map/tiles.py).
 
 The sparse border constraint turns every chain into many small (a, b)
 DTW problems ("tiles", rmap.cpp:248-293); the native round tail emits
@@ -28,6 +27,19 @@ tile and the round costs about its longest tile, and each rank with
 tiles makes one launch on its own device (:func:`run_round_sharded`).
 A tile's cost does not depend on the other tiles of its launch, so the
 costs are bit-identical to the one-launch round.
+
+The non-indexed dispatch (:func:`dtw_submit`, :func:`dtw_banded_pairs`;
+the JAX package's ``dtw_banded_multi``) takes raw (read, reference,
+radius, exclude_last) pairs: the small ones are laid out in one flat
+pool, ``[every a side | every b side]`` after the swap that makes ``a``
+the longer, with one descriptor column each, and run in one launch of
+the same kernel; the large ones run in the native library. The kernel
+applies ``exclude_last`` itself. :func:`prepare_tiles` and
+:class:`TileBatch` are the JAX package's pre-shifted panels, copied as
+they are; :func:`dtw_banded` reads a batch's tiles by descriptor from
+its own two panels. The TPU kernel's operand layout (reversed,
+transposed panels) and its host-side ``exclude_last`` correction are
+not ported: this kernel reads neither.
 """
 
 from __future__ import annotations
@@ -297,3 +309,217 @@ def dtw_collect(pending: PendingDtw) -> np.ndarray:
     if pending.large_costs is not None:
         out[pending.large_idx] = pending.large_costs.result()
     return out
+
+
+# ---- the non-indexed dispatch ------------------------------------------
+
+
+def _run_pool(pool: np.ndarray, descs: np.ndarray, dev: torch.device
+              ) -> torch.Tensor:
+    """Costs of the (9, T) descriptors over the flat value ``pool``: one
+    :func:`run_round` launch, the pool in place of the reference pool and
+    no event history."""
+    return run_round(runtime.put(pool, dev),
+                     torch.zeros(0, dtype=torch.float32, device=dev), descs)
+
+
+def _pairs_descs(pairs) -> tuple[np.ndarray, np.ndarray]:
+    """(pool, (9, T) descriptors) of raw (read, reference, radius,
+    exclude_last) pairs: each pair swapped so ``a`` is the longer side
+    (dtw.cpp:283-292; the radius stays the read side's, rmap.cpp:276),
+    the pool every a side then every b side."""
+    T = len(pairs)
+    a, b = [], []
+    for p in pairs:
+        r, f = (np.asarray(x, np.float32).ravel() for x in p[:2])
+        a.append(f if f.size > r.size else r)
+        b.append(r if f.size > r.size else f)
+    a_len = np.fromiter((x.size for x in a), np.int64, T)
+    b_len = np.fromiter((x.size for x in b), np.int64, T)
+    a_base = np.cumsum(a_len) - a_len
+    b_base = int(a_len.sum()) + np.cumsum(b_len) - b_len
+    radius = np.fromiter((p[2] for p in pairs), np.int64, T)
+    excl = np.fromiter((bool(p[3]) for p in pairs), np.int64, T)
+    R = _widened_radius(a_len, b_len, radius)
+    dpw = _pow2_at_least(int(R.max(initial=1)) + 3, 16)
+    descs = _desc_array(a_base, a_len, b_base, b_len, radius, excl, dpw=dpw)
+    return np.concatenate(a + b), descs
+
+
+def dtw_submit(
+    pairs: list[tuple[np.ndarray, np.ndarray, int, bool]],
+    *,
+    device: str | torch.device = "cuda",
+    device_max_n: int = 128,
+    device_max_b: int = 128,
+) -> PendingDtw:
+    """Dispatch raw (read, reference, radius, exclude_last) pairs;
+    collect with :func:`dtw_collect`. Pairs whose longer side is at most
+    ``device_max_n`` and shorter side at most ``device_max_b`` run on
+    ``device`` in one launch; the rest in ``native.dtw_banded_batch`` on
+    a worker thread while the launch runs."""
+    dev = runtime.device(device)
+    sizes = [(np.size(p[0]), np.size(p[1])) for p in pairs]
+    small = np.fromiter((max(r, f) <= device_max_n and min(r, f) <= device_max_b
+                         for r, f in sizes), bool, len(pairs))
+    small_idx = np.nonzero(small)[0]
+    large_idx = np.nonzero(~small)[0]
+    small_costs = large_costs = None
+    if small_idx.size:
+        pool, descs = _pairs_descs([pairs[i] for i in small_idx])
+        small_costs = runtime.fetch_async(_run_pool(pool, descs, dev))
+    if large_idx.size:
+        sub = [pairs[i] for i in large_idx]
+        worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        large_costs = worker.submit(native.dtw_banded_batch, sub)
+        worker.shutdown(wait=False)
+    return PendingDtw(len(pairs), small_idx, small_costs, large_idx, large_costs)
+
+
+def dtw_banded_pairs(
+    pairs: list[tuple[np.ndarray, np.ndarray, int, bool]], **kw
+) -> np.ndarray:
+    """(T,) float32 costs of raw pairs, in input order: :func:`dtw_submit`
+    and :func:`dtw_collect`."""
+    if not pairs:
+        return np.zeros(0, dtype=np.float32)
+    return dtw_collect(dtw_submit(pairs, **kw))
+
+
+@dataclasses.dataclass
+class TileBatch:
+    a2: np.ndarray  # (T, max_n + dpw) pre-shifted longer sequences
+    b2: np.ndarray  # (T, LB2) pre-shifted shorter sequences
+    a_len: np.ndarray
+    b_len: np.ndarray
+    radius: np.ndarray
+    exclude_last: np.ndarray
+    a_last: np.ndarray
+    b_last: np.ndarray
+    d00: np.ndarray
+    dpw: int
+    max_n: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.a2.shape[0]
+
+
+def prepare_tiles(
+    pairs: list[tuple[np.ndarray, np.ndarray, int, bool]],
+    *,
+    lane_align: int = 8,
+) -> TileBatch:
+    """pairs: (read_region, ref_region, band_radius, exclude_last).
+
+    Swaps each pair so a is the longer sequence; the band radius is
+    computed by the caller from the READ region length before swapping
+    (rmap.cpp:276).
+    """
+    T = len(pairs)
+    sizes_r = np.fromiter((p[0].size for p in pairs), np.int64, T)
+    sizes_f = np.fromiter((p[1].size for p in pairs), np.int64, T)
+    swap = sizes_f > sizes_r
+    a_len = np.where(swap, sizes_f, sizes_r).astype(np.int32)
+    b_len = np.where(swap, sizes_r, sizes_f).astype(np.int32)
+    radius = np.fromiter((p[2] for p in pairs), np.int32, T)
+    excl = np.fromiter((p[3] for p in pairs), bool, T)
+
+    n64 = np.maximum(a_len.astype(np.int64), 1)
+    m64 = b_len.astype(np.int64)
+    r64 = radius.astype(np.int64)
+    R = r64 + ((n64 - m64) * r64 + n64 - 1) // n64
+    lp = R + np.where(R % 2 == 0, 1, 0)
+    half_lp = (lp // 2).astype(np.int64)
+
+    # panel widths in powers of two, as the JAX package sizes them (its
+    # compiled shapes); the values sit where its kernel reads them
+    dpw = _pow2_at_least(int(R.max(initial=1)) + 3, 16)
+    max_n = _pow2_at_least(int(a_len.max(initial=1)), 32)
+    lb2 = _pow2_at_least(int((m64 + half_lp + 1 + dpw).max(initial=1)), 32)
+
+    # flat value pools + one vectorized scatter per panel (a Python loop
+    # over tens of thousands of tiny tiles dominated mapping wall time)
+    a_flat = (
+        np.concatenate(
+            [np.asarray(p[1] if sw else p[0], np.float32) for p, sw in zip(pairs, swap)]
+        )
+        if T
+        else np.zeros(0, np.float32)
+    )
+    b_flat = (
+        np.concatenate(
+            [np.asarray(p[0] if sw else p[1], np.float32) for p, sw in zip(pairs, swap)]
+        )
+        if T
+        else np.zeros(0, np.float32)
+    )
+    al64 = a_len.astype(np.int64)
+    bl64 = b_len.astype(np.int64)
+    a_starts = np.concatenate([[0], np.cumsum(al64)[:-1]])
+    b_starts = np.concatenate([[0], np.cumsum(bl64)[:-1]])
+    rows_a = np.repeat(np.arange(T, dtype=np.int64), al64)
+    intra_a = np.arange(a_flat.size, dtype=np.int64) - np.repeat(a_starts, al64)
+    rows_b = np.repeat(np.arange(T, dtype=np.int64), bl64)
+    intra_b = np.arange(b_flat.size, dtype=np.int64) - np.repeat(b_starts, bl64)
+
+    a2 = np.zeros((T, max_n + dpw), dtype=np.float32)
+    b2 = np.zeros((T, lb2), dtype=np.float32)
+    # A2[t, x] = a[t, x - (dpw-1) + half_lp[t]]; offsets always in-range
+    # by construction (dpw >= R+3 > half_lp; widths sized to fit)
+    off_a = (dpw - 1) - half_lp
+    a2[rows_a, np.repeat(off_a, al64) + intra_a] = a_flat
+    # B2[t, x] = b[t, x - half_lp[t] - 1]
+    b2[rows_b, np.repeat(half_lp + 1, bl64) + intra_b] = b_flat
+
+    a_last = np.zeros(T, dtype=np.float32)
+    b_last = np.zeros(T, dtype=np.float32)
+    d00 = np.zeros(T, dtype=np.float32)
+    ok = (al64 > 0) & (bl64 > 0)
+    if T and a_flat.size and b_flat.size:
+        a_first = np.where(ok, a_flat[np.minimum(a_starts, a_flat.size - 1)], 0)
+        b_first = np.where(ok, b_flat[np.minimum(b_starts, b_flat.size - 1)], 0)
+        a_last = np.where(
+            ok, a_flat[np.minimum(a_starts + al64 - 1, a_flat.size - 1)], 0
+        ).astype(np.float32)
+        b_last = np.where(
+            ok, b_flat[np.minimum(b_starts + bl64 - 1, b_flat.size - 1)], 0
+        ).astype(np.float32)
+        d00 = np.abs(a_first - b_first).astype(np.float32)
+        d00[~ok] = 0.0
+    return TileBatch(
+        a2=a2,
+        b2=b2,
+        a_len=a_len,
+        b_len=b_len,
+        radius=radius,
+        exclude_last=excl,
+        a_last=a_last,
+        b_last=b_last,
+        d00=d00,
+        dpw=dpw,
+        max_n=max_n,
+    )
+
+
+def dtw_banded(batch: TileBatch, *, device: str | torch.device = "cuda"
+               ) -> np.ndarray:
+    """(T,) float32 costs of a :class:`TileBatch`, in one launch: each
+    tile read by descriptor from the batch's own panels, pooled as
+    ``[a2 | b2]`` (a2's row t holds a from column (dpw - 1) - half_lp[t],
+    b2's from half_lp[t] + 1)."""
+    dev = runtime.device(device)
+    T = batch.n_tiles
+    if T == 0:
+        return np.zeros(0, dtype=np.float32)
+    a_len = batch.a_len.astype(np.int64)
+    b_len = batch.b_len.astype(np.int64)
+    R = _widened_radius(a_len, b_len, batch.radius)
+    half_lp = (R + np.where(R % 2 == 0, 1, 0)) // 2
+    t = np.arange(T, dtype=np.int64)
+    a_base = t * batch.a2.shape[1] + (batch.dpw - 1) - half_lp
+    b_base = batch.a2.size + t * batch.b2.shape[1] + half_lp + 1
+    descs = _desc_array(a_base, a_len, b_base, b_len, batch.radius,
+                        batch.exclude_last, dpw=batch.dpw)
+    pool = np.concatenate([batch.a2.reshape(-1), batch.b2.reshape(-1)])
+    return runtime.fetch(_run_pool(pool, descs, dev))

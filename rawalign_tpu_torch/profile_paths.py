@@ -1,16 +1,20 @@
 """Time and profile the port's mapping paths on one CUDA card.
 
-    python -m rawalign_tpu_torch.profile_paths [--paths hybrid,device] [--passes 3]
+    python -m rawalign_tpu_torch.profile_paths [--paths hybrid,device,fused] [--passes 3]
 
 Maps the dataset of ``chip_smoke.py`` (a 5 Mb synthetic genome, 256
 reads, the ``sensitive`` preset with DTW chain evaluation; batch 32,
 8 pipeline groups) through each path named: ``hybrid`` (the default
-placements) and ``device`` (``stage1_impl="device", chain_impl="device"``).
+placements), ``device`` (``stage1_impl="device", chain_impl="device"``)
+and ``fused`` (the same with ``fused=True`` and ``max_anchors=65536``,
+the budget at which this dataset's widest first round, 52,208 anchors,
+stays in the fused chain DP instead of escalating).
 Per path: one warm pass, ``--passes`` timed passes (reads/s, each ending
 in ``torch.cuda.synchronize()``), then one pass under ``torch.profiler``:
 the device's busy share (the union of the intervals in which a kernel,
-copy or fill ran, over the pass wall) and device time per kernel name
-(the 12 longest and every kernel of the port);
+copy or fill ran, over the pass wall), device time per kernel name
+(the 12 longest and every kernel of the port) and the engine's counters
+(the fused path's escalations and prefix refetches among them);
 with ``--cprofile N``, one more pass under ``cProfile`` and the N
 functions with the most self time on the main thread (the host work the
 worker pool runs in C is not in it). Prints one JSON object per path,
@@ -29,6 +33,8 @@ import time
 PLACEMENTS = {
     "hybrid": {},
     "device": {"stage1_impl": "device", "chain_impl": "device"},
+    "fused": {"stage1_impl": "device", "chain_impl": "device", "fused": True,
+              "max_anchors": 65536},
 }
 
 
@@ -89,8 +95,9 @@ def profile_path(name, idx, mo, reads, passes: int, top: int) -> dict:
             torch.cuda.synchronize()
             rates.append(n / (time.perf_counter() - t0))
         out["reads_per_s"] = rates
-        for k in eng.phase_times:
-            eng.phase_times[k] = 0
+        for d in (eng.phase_times, eng.counters):
+            for k in d:
+                d[k] = 0
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
@@ -103,6 +110,7 @@ def profile_path(name, idx, mo, reads, passes: int, top: int) -> dict:
             profiled_wall_ms=wall, device_busy_ms=busy,
             device_busy_share=busy / wall,
             phase_seconds=dict(eng.phase_times),
+            counters=dict(eng.counters),
             # the 12 longest, and the port's own kernels however short
             kernels_ms={k[:80]: v for n, (k, v) in enumerate(sorted(
                 by_name.items(), key=lambda kv: -kv[1][0]))

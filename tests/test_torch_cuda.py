@@ -453,6 +453,7 @@ def _engine_matches_golden(dev, flags=config.MappingFlag.NONE, mesh=None,
     for r in ds.reads:
         assert got[r.name] == strip(paf.paf_line(
             gengine.map_read(idx, r.signal, r.name, mo)))
+    return got
 
 
 def test_engine_on_the_card_matches_golden(dev):
@@ -474,6 +475,40 @@ def test_cigar_engine_on_the_card_matches_golden(dev):
         dev, config.MappingFlag.DTW_OUTPUT_CIGAR | config.MappingFlag.OUTPUT_CHAINS,
         stage1_impl="device", chain_impl="device")
     assert dtw_cuda.launches > launched
+
+
+def test_fused_engine_on_the_card_matches_cpu_and_golden(dev):
+    """The fused stage1+chain: the event, sketch and chain kernels in one
+    device stage; the PAF equals the same engine's at device="cpu"."""
+    mods = (events_cuda, sketch_cuda, chain_cuda)
+    launched = [m.launches for m in mods]
+    got = _engine_matches_golden(dev, fused=True)
+    assert all(m.launches > n for m, n in zip(mods, launched))
+    assert got == _engine_matches_golden(torch.device("cpu"), fused=True)
+
+
+def test_dtw_pairs_on_the_card_match_native(dev):
+    """The non-indexed dispatch: raw pairs up to n 4096 (a 10% band, as
+    tools/check_dtw.py sizes it), in one launch, equal to native; the
+    prepared-panel form too."""
+    rng = np.random.default_rng(4)
+    pairs = []
+    for n in [1, 2, 7, 33, 128, 129, 400, 1000, 2048, 2049, 4096, 4096]:
+        for stretch in (0.6, 1.0, 1.3):
+            m = max(1, int(n * stretch))
+            pairs.append((rng.normal(0, 1, n).astype(np.float32),
+                          rng.normal(0, 1, m).astype(np.float32),
+                          max(1, int(n * 0.10)), bool(rng.integers(0, 2))))
+    want = native.dtw_banded_batch(pairs)
+    before = dtw_cuda.launches
+    got = tiles.dtw_banded_pairs(pairs, device=dev, device_max_n=8192,
+                                 device_max_b=8192)
+    assert dtw_cuda.launches == before + 1
+    np.testing.assert_array_equal(got, want)
+    small = [p for p in pairs if max(p[0].size, p[1].size) <= 2048]
+    np.testing.assert_array_equal(
+        tiles.dtw_banded(tiles.prepare_tiles(small), device=dev),
+        native.dtw_banded_batch(small))
 
 
 @pytest.mark.parametrize("stage1_impl", ["hybrid", "device"])

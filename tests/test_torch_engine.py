@@ -302,21 +302,24 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_unported_modes_raise(setup):
-    """Only the fused stage1+chain is left unported."""
+    """Every mode of the JAX engine is ported; what it refuses, the port
+    refuses: the fused stage1+chain on the hybrid stage1 (it needs the
+    raw signal on the device)."""
     _ds, idx, _reads = setup
-    with pytest.raises(NotImplementedError):
-        MappingEngine(idx, _opts(True), device="cpu", fused=True)
+    with pytest.raises(ValueError, match="stage1_impl='device'"):
+        MappingEngine(idx, _opts(True), device="cpu", fused=True,
+                      stage1_impl="hybrid")
 
 
 def test_missing_native_library_raises(setup, monkeypatch):
     _ds, idx, _reads = setup
     monkeypatch.setattr(native, "round_tail_available", lambda: False)
     with pytest.raises(RuntimeError, match="native"):
-        MappingEngine(idx, _opts(True), device="cpu")
+        MappingEngine(idx, _opts(True), device="cpu", chain_impl="native")
 
 
 @pytest.mark.parametrize("missing,kw", [
-    ("events_available", {}),
+    ("events_available", dict(stage1_impl="hybrid")),
     ("chains_from_dp_available", dict(chain_impl="device")),
 ])
 def test_missing_native_piece_raises(setup, monkeypatch, missing, kw):
