@@ -91,7 +91,19 @@ Phases (each raises on failure; the script then exits non-zero):
    once a round with device tiles; it logs reads/s beside phases 4 and 5
    and the chain-upload bytes the fused rounds no longer send. Then one
    pass at the default budget (2048), whose wide rows escalate, against
-   the unfused all-device engine at the same ceiling: equal PAFs.
+   the unfused all-device engine at the same ceiling: equal PAFs;
+9. the port's CLI on the card: ``python -m rawalign_tpu_torch.cli`` in a
+   subprocess with no ``--device`` (the default ``cuda``), on the genome
+   of phases 4-5 written as FASTA with its pore model and the 256 reads
+   in the float32 ``.sigbin.npz`` container. Seven runs: the hybrid
+   default and the all-device placement, each with no flag, with
+   ``--profile DIR`` and with ``--debug-nans``, and the hybrid with both
+   (run a; run b is the all-device ``--profile``). Each must exit 0 with
+   all 256 PAF lines equal to phase 4's (hybrid) or phase 5's
+   (all-device), and each ``--profile`` run's Chrome trace must name
+   the sketch and DTW kernels (and the event and chain kernels on the
+   all-device placement). Each run's wall and reads/s after the index
+   are logged beside the card's name and power limit.
 
 ``python3 -c 'import chip_smoke; chip_smoke.distributed_only()'`` runs
 phases 1-3, the timed passes of 4 and 5 and phase 7 alone (a minute or
@@ -1423,8 +1435,118 @@ def phase8(device, idx, mo, reads, device_lines: dict, rates: dict,
     return launches
 
 
+#: the CLI runs of phase 9: (label, placement flags, flags under test).
+#: (a) runs both flags on the hybrid placement, (b) ``--profile`` on the
+#: all-device one; the others time each flag alone against no flag
+CLI_RUNS = (
+    ("9 hybrid", [], []),
+    ("9 hybrid", [], ["--profile"]),
+    ("9 hybrid", [], ["--debug-nans"]),
+    ("9a hybrid", [], ["--profile", "--debug-nans"]),
+    ("9 all-device", ["--stage1-impl", "device", "--chain-impl", "device"], []),
+    ("9b all-device", ["--stage1-impl", "device", "--chain-impl", "device"],
+     ["--profile"]),
+    ("9 all-device", ["--stage1-impl", "device", "--chain-impl", "device"],
+     ["--debug-nans"]),
+)
+#: the kernels each placement launches, by their names in a trace
+CLI_KERNELS = {
+    "hybrid": ("ra_sketch_scan_kernel", "ra_dtw_round_kernel"),
+    "all-device": ("ra_sketch_scan_kernel", "ra_dtw_round_kernel",
+                   "ra_event_detect_kernel", "ra_chain_dp_kernel"),
+}
+
+
+def _trace_kernels(trace_dir: str) -> dict[str, int]:
+    """Events a kernel of ours has in the one Chrome trace in
+    ``trace_dir``, by kernel name."""
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+        raise RuntimeError(f"{trace_dir}: want one trace file, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    counts: dict[str, int] = {}
+    for ev in events:
+        m = re.search(r"ra_\w+_kernel", str(ev.get("name", "")))
+        if m and ev.get("cat") == "kernel":
+            counts[m.group(0)] = counts.get(m.group(0), 0) + 1
+    return counts
+
+
+def phase9(ds, hybrid: dict, device_lines: dict, smi: str) -> None:
+    """Phase 9: the port's CLI on the card, ``python -m
+    rawalign_tpu_torch.cli`` in a subprocess with no ``--device`` (so the
+    default ``cuda``), on phase 4's genome written as FASTA with its pore
+    model and its reads in the CLI's float32 signal container
+    (``.sigbin.npz``: FAST5 quantizes the signal to 16 bits, so its PAF
+    would not be phase 4's, and needs h5py). Each run of ``CLI_RUNS`` must
+    exit 0 with PAF lines equal to phase 4's (hybrid) or phase 5's
+    (all-device), mt:f stripped; each ``--profile`` run must leave one
+    trace naming every kernel of its placement. Logs each run's wall, the
+    CLI's own index and total seconds, and reads/s after the index."""
+    import tempfile
+
+    from rawalign_tpu_torch.io import fast5, fasta
+    from rawalign_tpu_torch.pore_model import save_pore_model
+
+    t0 = time.perf_counter()
+    scratch = os.path.join(ROOT, "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cli_smoke_", dir=scratch) as tmp:
+        ref_fa = os.path.join(tmp, "ref.fa")
+        model = os.path.join(tmp, "model.txt")
+        sigs = os.path.join(tmp, "reads.sigbin.npz")
+        fasta.write_fasta(ref_fa, [(s.name, s.seq) for s in ds.seqs])
+        save_pore_model(model, ds.model)
+        fast5.write_sigbin(sigs, [(r.name, r.signal) for r in ds.reads])
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        for k, (label, placement, flags) in enumerate(CLI_RUNS):
+            out = os.path.join(tmp, f"run{k}.paf")
+            prof = os.path.join(tmp, f"trace{k}")
+            argv = ["-x", "sensitive", "--dtw-evaluate-chains",
+                    "--pipeline-depth", "8", "-p", model, "-o", out,
+                    *placement, *flags, ref_fa, sigs]
+            argv = [a if a != "--profile" else f"--profile={prof}" for a in argv]
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "rawalign_tpu_torch.cli", *argv],
+                cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t1
+            what = f"{label} {' '.join(flags) or '(no flag)'}"
+            if proc.returncode != 0:
+                raise RuntimeError(f"[{what}] the CLI exited {proc.returncode}:\n"
+                                   f"{proc.stderr[-4000:]}")
+            with open(out) as f:
+                got = {ln.split("\t", 1)[0]: strip_time(ln)
+                       for ln in f.read().splitlines()}
+            all_device = "all-device" in label
+            same_lines(what, got, device_lines if all_device else hybrid,
+                       "phase 5's" if all_device else "phase 4's")
+            built = re.search(r"\[M::main::([0-9.]+)\] built the index",
+                              proc.stderr)
+            real = re.search(r"Real time: ([0-9.]+) sec", proc.stderr)
+            if not built or not real:
+                raise RuntimeError(f"[{what}] no index or Real time line:\n"
+                                   f"{proc.stderr[-4000:]}")
+            t_index, t_real = float(built.group(1)), float(real.group(1))
+            traced = ""
+            if "--profile" in flags:
+                kernels = _trace_kernels(prof)
+                want = CLI_KERNELS["all-device" if all_device else "hybrid"]
+                if any(not kernels.get(k) for k in want):
+                    raise RuntimeError(f"[{what}] the trace names {kernels}, "
+                                       f"not every one of {want}")
+                traced = f"; trace kernel events {json.dumps(kernels)}"
+            log(f"[{what}] exit 0, all {len(got)} PAF lines byte-identical to "
+                f"{'phase 5' if all_device else 'phase 4'}'s; wall {wall:.3f} s, "
+                f"CLI real {t_real:.3f} s, index {t_index:.3f} s, "
+                f"{len(got) / (t_real - t_index):.2f} reads/s after the index "
+                f"on {smi}{traced}")
+    log(f"[9] phase 9 in {time.perf_counter() - t0:.1f} s")
+
+
 def run(device, name: str, smi: str, t_start: float) -> None:
-    """Phases 4 to 6 on ``device``; prints the two result lines."""
+    """Phases 4 to 9 on ``device``; prints the two result lines."""
     import torch
 
     from rawalign_tpu_torch.golden import engine as gengine
@@ -1523,6 +1645,7 @@ def run(device, name: str, smi: str, t_start: float) -> None:
     phase7(device, idx, mo, reads, device_lines, engine, ref_cat, captured[0],
            rates, smi)
     fused_launches = phase8(device, idx, mo, reads, device_lines, rates, smi)
+    phase9(ds, hybrid, device_lines, smi)
     log(f"[smoke] launches: phase 5's timed pass {launches}, phase 8's "
         f"{fused_launches}")
 

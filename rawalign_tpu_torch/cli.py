@@ -6,17 +6,21 @@
 rawalign_tpu/cli.py's: the same options with the same help, plus
 ``--device`` (default ``cuda``). Indexing runs as in the JAX CLI (numpy
 and the native host library); mapping runs the port's engine.
-``--profile`` and ``--debug-nans`` are JAX tools and are refused.
+``--profile DIR`` traces the mapping loop with ``torch.profiler`` and
+writes a Chrome trace into DIR; ``--debug-nans`` turns on the kernel
+wrappers' NaN guard (``runtime.set_debug_nans``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import resource
+import socket
 import sys
 import time
 
-from rawalign_tpu_torch import __version__, config
+from rawalign_tpu_torch import __version__, config, runtime
 from rawalign_tpu_torch.config import BorderConstraint, FillMethod, MappingFlag
 from rawalign_tpu_torch.index import index as dindex
 from rawalign_tpu_torch.io import fast5, fasta, paf
@@ -121,9 +125,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="skip reads already present in the -o PAF and append")
     p.add_argument("--profile", metavar="DIR",
-                   help="capture a jax.profiler device trace into DIR")
+                   help="capture a torch.profiler trace (host, and the "
+                   "card's kernels) of the mapping loop into DIR")
     p.add_argument("--debug-nans", action="store_true",
-                   help="enable jax debug_nans (slow; for debugging)")
+                   help="raise on a NaN in a kernel's float inputs or "
+                   "outputs, as jax debug_nans (slow; for debugging)")
     p.add_argument("--selfcheck", type=float, default=0.0, metavar="FRAC",
                    help="sanitizer analog: re-map a deterministic FRAC "
                    "sample of reads with the golden host oracle and "
@@ -270,17 +276,47 @@ def _load_or_build_index(args, io, t0):
     return idx
 
 
+def _start_profiler(args):
+    """A started ``torch.profiler`` session over the host, and over the
+    card when the mapping engine runs on one."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if args.engine == "device" and torch.device(args.device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts, record_shapes=False,
+                                  with_stack=False)
+    prof.start()
+    return prof
+
+
+def _write_trace(prof, out_dir: str) -> str:
+    """Write the stopped session's Chrome trace into ``out_dir`` under a
+    name of its own (host, pid and time, as
+    ``torch.profiler.tensorboard_trace_handler`` names its files)."""
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"{socket.gethostname()}_{os.getpid()}."
+                        f"{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def main(argv=None) -> int:
-    t0 = time.time()
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.target is None:
         parser.print_help()
         return 1
-    if args.profile or args.debug_nans:
-        print("[ERROR] --profile and --debug-nans are JAX-only options",
-              file=sys.stderr)
-        return 1
+    debug_nans = runtime.debug_nans()
+    runtime.set_debug_nans(args.debug_nans)
+    try:
+        return _run(args)
+    finally:
+        runtime.set_debug_nans(debug_nans)
+
+
+def _run(args) -> int:
+    t0 = time.time()
     io, mo = apply_options(args)
     idx = _load_or_build_index(args, io, t0)
     if idx is None:
@@ -324,35 +360,39 @@ def main(argv=None) -> int:
                     checker.capture(name, sig)
                 yield name, sig
 
-    engine = None
-    if args.engine == "golden":
-        from rawalign_tpu_torch.golden import engine as gengine
-
-        results = gengine.map_reads(idx, reads(), mo)
-    else:
-        from rawalign_tpu_torch.map.engine import MappingEngine
-
-        engine = MappingEngine(
-            idx, mo,
-            device=args.device,
-            batch_size=args.batch_size,
-            max_occ=args.max_occ,
-            chain_window=args.chain_window,
-            max_anchors=args.max_anchors,
-            seeds_out=args.seeds_out,
-            pipeline_depth=args.pipeline_depth,
-            chain_impl=args.chain_impl,
-            stage1_impl=args.stage1_impl,
-            mt_mode=args.mt_mode,
-        )
-        results = engine.map_reads(reads())
     su = (SequenceUntil(idx.n_seq, mo)
           if mo.flag & MappingFlag.SEQUENCE_UNTIL else None)
     out = sys.stdout if args.output == "-" else open(
         args.output, "a" if args.resume else "w")
+    # the trace spans the mapping loop, as the JAX CLI's does; the
+    # profiler stops whether the loop ends or raises
+    prof = engine = None
     n_out = 0
     su_stopped = False
     try:
+        if args.profile:
+            prof = _start_profiler(args)
+        if args.engine == "golden":
+            from rawalign_tpu_torch.golden import engine as gengine
+
+            results = gengine.map_reads(idx, reads(), mo)
+        else:
+            from rawalign_tpu_torch.map.engine import MappingEngine
+
+            engine = MappingEngine(
+                idx, mo,
+                device=args.device,
+                batch_size=args.batch_size,
+                max_occ=args.max_occ,
+                chain_window=args.chain_window,
+                max_anchors=args.max_anchors,
+                seeds_out=args.seeds_out,
+                pipeline_depth=args.pipeline_depth,
+                chain_impl=args.chain_impl,
+                stage1_impl=args.stage1_impl,
+                mt_mode=args.mt_mode,
+            )
+            results = engine.map_reads(reads())
         for res in results:
             line = paf.paf_line(res)
             if su_stopped and res.mapped:
@@ -373,10 +413,15 @@ def main(argv=None) -> int:
                           f"sequencing after processing {su.n_reads} mapped "
                           "reads", file=sys.stderr)
     finally:
+        if prof is not None:
+            prof.stop()
         if out is not sys.stdout:
             out.close()
         if engine is not None:
             engine.close()
+    if prof is not None:
+        print(f"[M::main] profiler trace written to "
+              f"{_write_trace(prof, args.profile)}", file=sys.stderr)
     selfcheck_failed = checker is not None and checker.report()["n_divergent"] > 0
     # final resource report (main.cpp:389-394); ru_maxrss is KiB on Linux,
     # bytes on macOS

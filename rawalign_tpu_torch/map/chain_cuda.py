@@ -4,7 +4,9 @@ Port of rawalign_tpu/map/chain_pallas.py. :func:`chain_dp` runs the
 kernel (a warp per read; ``map/chain.py:chain_dp_scan_plain`` is its
 formulation in plain PyTorch) on CUDA tensors and the plain PyTorch
 version (``map/chain.py:chain_dp_plain``) on CPU tensors; any other
-device raises. ``launches`` counts kernel launches.
+device raises. ``launches`` counts kernel launches. Under the NaN
+guard (``runtime.set_debug_nans``) each row's live scores are checked
+for NaN on either device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import functools
 
 import torch
 
+from rawalign_tpu_torch import runtime
 from rawalign_tpu_torch.kernels import build
 from rawalign_tpu_torch.map import chain
 
@@ -40,11 +43,21 @@ def chain_dp(seg: torch.Tensor, target: torch.Tensor, query: torch.Tensor,
              n_anchors: torch.Tensor, *, window: int, e: int, max_gap: int,
              max_target_gap: int, max_skips: int) -> chain.ChainScores:
     """Scores and predecessors (B, A) of ``chain.chain_dp_plain``."""
-    global launches
     kw = dict(window=window, e=e, max_gap=max_gap,
               max_target_gap=max_target_gap, max_skips=max_skips)
     if seg.device.type == "cpu":
-        return chain.chain_dp_plain(seg, target, query, n_anchors, **kw)
+        dp = chain.chain_dp_plain(seg, target, query, n_anchors, **kw)
+    else:
+        dp = _launch(seg, target, query, n_anchors, **kw)
+    runtime.check_finite("chain_dp output", dp.scores, lengths=n_anchors)
+    return dp
+
+
+def _launch(seg: torch.Tensor, target: torch.Tensor, query: torch.Tensor,
+            n_anchors: torch.Tensor, *, window: int, e: int, max_gap: int,
+            max_target_gap: int, max_skips: int) -> chain.ChainScores:
+    """The kernel's launch for :func:`chain_dp`."""
+    global launches
     if seg.device.type != "cuda":
         raise ValueError(f"chain_dp: unsupported device {seg.device}")
     if seg.dim() != 2:

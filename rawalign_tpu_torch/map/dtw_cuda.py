@@ -5,6 +5,8 @@ class batch of a round). :func:`dtw_banded_round` runs the kernel once
 for a whole round on CUDA tensors and the plain PyTorch version of its
 formulation (``map/dtw.py:dtw_banded_round``) on CPU tensors; any other
 device raises. ``launches`` counts kernel launches, one per round.
+Under the NaN guard (``runtime.set_debug_nans``) the pool slots the
+tiles read and the costs are checked for NaN on either device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import functools
 
 import torch
 
+from rawalign_tpu_torch import runtime
 from rawalign_tpu_torch.kernels import build
 from rawalign_tpu_torch.map import dtw
 
@@ -54,10 +57,40 @@ def dtw_banded_round(ref: torch.Tensor, hist: torch.Tensor,
     from ``ref`` (Lref,) and the flattened ``hist``, in column order.
     ``jobs``, ``block_w`` and ``stage`` are ``map/tiles.py:work_list``'s
     for ``descs``; see ``map/dtw.py:dtw_banded_round``."""
-    global launches
+    if runtime.debug_nans():
+        runtime.check_finite("dtw_banded_round input",
+                             *_pool_reads(ref, hist, descs))
     if ref.device.type == "cpu":
         order = jobs[:, 1:].reshape(-1)
-        return dtw.dtw_banded_round(ref, hist, descs, order=order[order >= 0])
+        out = dtw.dtw_banded_round(ref, hist, descs, order=order[order >= 0])
+    else:
+        out = _launch(ref, hist, descs, jobs, block_w=block_w, stage=stage)
+    runtime.check_finite("dtw_banded_round output", out)
+    return out
+
+
+def _pool_reads(ref: torch.Tensor, hist: torch.Tensor,
+                descs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The values of ``ref`` and of the flattened ``hist`` that the tiles
+    of ``descs`` read: ``a_base + [0, n)`` and ``b_base + [0, m)`` of
+    each, in the pools' joint numbering (``map/dtw.py``)."""
+    hist = hist.reshape(-1)
+    lref, total = ref.numel(), ref.numel() + hist.numel()
+    d = descs.to(ref.device, torch.int64)
+    lo = torch.cat([d[0], d[3]]).clamp(0, total)
+    hi = (lo + torch.cat([d[2], d[5]]).clamp(min=0)).clamp(max=total)
+    cover = torch.zeros(total + 1, dtype=torch.int32, device=ref.device)
+    one = torch.ones(lo.shape, dtype=torch.int32, device=ref.device)
+    cover.index_add_(0, lo, one)
+    cover.index_add_(0, hi, -one)
+    read = cover.cumsum(0)[:-1] > 0
+    return ref[read[:lref]], hist[read[lref:]]
+
+
+def _launch(ref: torch.Tensor, hist: torch.Tensor, descs: torch.Tensor,
+            jobs: torch.Tensor, *, block_w: int, stage: int) -> torch.Tensor:
+    """The kernel's one launch for :func:`dtw_banded_round`."""
+    global launches
     if ref.device.type != "cuda":
         raise ValueError(f"dtw_banded_round: unsupported device {ref.device}")
     dev = ref.device

@@ -6,7 +6,9 @@ runs the kernel on CUDA tensors and the plain PyTorch version
 (``signal/events.py:detect_events_plain``) on CPU tensors; any other
 device raises. ``launches`` counts kernel launches; :func:`reruns` reads
 the kernel's own count of the peak machine's chunks that ran again, and
-of the rounds of such runs.
+of the rounds of such runs. Under the NaN guard
+(``runtime.set_debug_nans``) each row's live samples and events are
+checked for NaN on either device.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import functools
 
 import torch
 
+from rawalign_tpu_torch import runtime
 from rawalign_tpu_torch.kernels import build
 from rawalign_tpu_torch.signal import events
 
@@ -70,11 +73,22 @@ def detect_events(sig: torch.Tensor, length: torch.Tensor, *, w1: int,
     """Events of each row of ``sig`` (B, L) float32 (unit column stride)
     over its first ``length`` (B,) int32 samples: the outputs of
     ``events.detect_events_plain``."""
-    global launches
     kw = dict(w1=w1, w2=w2, threshold1=threshold1, threshold2=threshold2,
               peak_height=peak_height, max_events=max_events)
+    runtime.check_finite("detect_events input", sig, lengths=length)
     if sig.device.type == "cpu":
-        return events.detect_events_plain(sig, length, **kw)
+        ev = events.detect_events_plain(sig, length, **kw)
+    else:
+        ev = _launch(sig, length, **kw)
+    runtime.check_finite("detect_events output", ev.values, lengths=ev.n_events)
+    return ev
+
+
+def _launch(sig: torch.Tensor, length: torch.Tensor, *, w1: int, w2: int,
+            threshold1: float, threshold2: float, peak_height: float,
+            max_events: int) -> events.EventBatch:
+    """The kernel's launch for :func:`detect_events`."""
+    global launches
     if sig.device.type != "cuda":
         raise ValueError(f"detect_events: unsupported device {sig.device}")
     if sig.dtype != torch.float32 or sig.dim() != 2 or (

@@ -644,3 +644,52 @@ def test_fetch_async_waits_for_the_tensors_own_card(two_cards):
     torch.cuda.synchronize(c1)
     np.testing.assert_array_equal(host, got.scores.cpu().numpy())
     assert (host > 0).any()
+
+
+@pytest.fixture
+def guard():
+    runtime.set_debug_nans(True)
+    yield
+    runtime.set_debug_nans(False)
+
+
+def test_check_finite_on_the_card(dev, guard):
+    """The NaN guard on CUDA tensors: a NaN past a row's length passes,
+    one inside it raises."""
+    x = torch.zeros((2, 8), device=dev)
+    n = torch.tensor([8, 3], dtype=torch.int32, device=dev)
+    x[1, 5] = float("nan")
+    runtime.check_finite("k", x, lengths=n)
+    x[1, 2] = float("nan")
+    with pytest.raises(FloatingPointError, match="^NaN in k$"):
+        runtime.check_finite("k", x, lengths=n)
+
+
+def test_the_kernel_wrappers_guard_their_inputs_on_the_card(dev, guard):
+    """A NaN sample inside a row's length stops the event kernel's
+    wrapper, and a NaN event in a slot a tile reads the DTW kernel's;
+    neither wrapper launches its kernel then."""
+    rng = np.random.default_rng(12)
+    sig = torch.from_numpy(rng.normal(90, 10, (2, 600)).astype(np.float32)).to(dev)
+    length = torch.tensor([600, 300], dtype=torch.int32, device=dev)
+    sig[1, 400] = float("nan")
+    events_cuda.detect_events(sig, length, max_events=256, **EV_KW)
+    sig[1, 100] = float("nan")
+    before = events_cuda.launches
+    with pytest.raises(FloatingPointError, match="^NaN in detect_events input$"):
+        events_cuda.detect_events(sig, length, max_events=256, **EV_KW)
+    assert events_cuda.launches == before
+
+    ref = torch.from_numpy(rng.normal(0, 1, 40).astype(np.float32)).to(dev)
+    hist = torch.from_numpy(rng.normal(0, 1, (2, 16)).astype(np.float32)).to(dev)
+    da = np.array([[0, 12, 40, 7, 3, 0], [20, 10, 56, 6, 2, 1]], np.int64)
+    _o, descs, _b = tiles.class_batches(
+        *[da[:, k].astype(np.int32) for k in range(6)], np.arange(2),
+        device_max_n=2048)
+    hist.view(-1)[10] = float("nan")  # joint slot 50: no tile reads it
+    tiles.run_round(ref, hist, descs)
+    hist.view(-1)[19] = float("nan")  # joint slot 59: the second tile's
+    before = dtw_cuda.launches
+    with pytest.raises(FloatingPointError, match="^NaN in dtw_banded_round input$"):
+        tiles.run_round(ref, hist, descs)
+    assert dtw_cuda.launches == before

@@ -57,13 +57,20 @@ def _actions(parser):
 
 
 def test_parser_has_the_jax_options_and_help():
+    """The same options; only ``--profile`` and ``--debug-nans`` have help
+    of their own, naming what they do in the port."""
     got, want = _actions(tcli.build_parser()), _actions(jcli.build_parser())
     assert set(got) - set(want) == {"device"}
     for dest, spec in want.items():
         if dest == "version":
             continue
+        if dest in ("profile", "debug_nans"):
+            assert got[dest][:4] + got[dest][5:] == spec[:4] + spec[5:], dest
+            continue
         assert got[dest] == spec, dest
     assert got["device"][:2] == (("--device",), "cuda")
+    assert "torch.profiler" in got["profile"][4]
+    assert "NaN" in got["debug_nans"][4]
 
 
 @pytest.mark.parametrize("argv", ARGVS, ids=range(len(ARGVS)))

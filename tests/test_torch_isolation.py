@@ -57,6 +57,32 @@ def test_importing_every_module_loads_neither_jax_nor_the_jax_package():
     assert bad == "[]"
 
 
+LOAD_ONE = """
+import importlib, pkgutil, sys
+import rawalign_tpu_torch
+walked = [m.name for m in pkgutil.walk_packages(rawalign_tpu_torch.__path__,
+                                                "rawalign_tpu_torch.")]
+importlib.import_module(sys.argv[1])
+print(sys.argv[1] in walked)
+print(sorted(k for k in sys.modules if k in ("jax", "rawalign_tpu")
+             or k.startswith(("jax.", "rawalign_tpu."))))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "rawalign_tpu_torch.golden.index", "rawalign_tpu_torch.cli",
+    "rawalign_tpu_torch.runtime",
+])
+def test_the_last_ported_modules_load_neither_jax_nor_the_jax_package(module):
+    """Each is among the modules the walk above imports, and alone in a
+    fresh interpreter it loads no ``jax`` and no ``rawalign_tpu``."""
+    proc = subprocess.run([sys.executable, "-c", LOAD_ONE, module], cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["True", "[]"]
+
+
 def test_sources_name_the_jax_package_only_as_a_path():
     hits = []
     for path in _sources():
