@@ -1,4 +1,5 @@
-"""Copy of rawalign_tpu/map/anchors.py for the port.
+"""Copy of rawalign_tpu/map/anchors.py for the port, with
+:func:`expand_block`, the expansion of a block of a round's rows.
 
 Batched host-side anchor expansion + sort for the mapping engine.
 
@@ -46,6 +47,33 @@ def expand_round(
     return expand_round_numpy(
         h_lo, h_qpos, h_count, live, offsets, carried_lists,
         val_id, val_ps, A, seg_b, tgt_b, qry_b, n_anch,
+    )
+
+
+#: the segment of an empty anchor slot: beyond every real segment, so the
+#: chain DP never links it
+SENTINEL_SEG = 0x7FFFFFFF
+
+
+def expand_block(
+    lo, hi, h_lo, h_qpos, h_count, live, offsets, carried_lists,
+    val_id, val_ps, A, seg_b, tgt_b, qry_b, n_anch,
+) -> tuple[int, int, int]:
+    """:func:`expand_round` on rows ``lo .. hi`` of a round, arguments
+    as there (``carried_lists`` keyed by the round's rows), in place in
+    those rows of the (B, A) outputs, which it first fills with the
+    sentinel segment and zeros. A row's anchors depend on that row's
+    inputs alone, so disjoint blocks may run on several threads; the
+    round's (max_used, max_true, dropped) are the blocks' max, max and
+    sum."""
+    r = slice(lo, hi)
+    seg_b[r] = SENTINEL_SEG
+    tgt_b[r] = 0
+    qry_b[r] = 0
+    return expand_round(
+        h_lo[r], h_qpos[r], h_count[r], live[r], offsets[r],
+        {i - lo: c for i, c in carried_lists.items() if lo <= i < hi},
+        val_id, val_ps, A, seg_b[r], tgt_b[r], qry_b[r], n_anch[r],
     )
 
 

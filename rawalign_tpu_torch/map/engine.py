@@ -123,6 +123,36 @@ def check_expand_bound(need: np.ndarray, live: np.ndarray) -> None:
         )
 
 
+#: the least anchor demand of a round's row block: a lighter round's tail
+#: runs in fewer jobs, since every job adds its Python glue and its
+#: hand-overs of the interpreter lock to the main thread's round loop
+ROW_BLOCK_ANCHORS = 1 << 17
+
+
+def host_cpus() -> int:
+    """The CPUs this process may run on (its affinity mask, which a
+    container or ``taskset`` may narrow below ``os.cpu_count()``)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # a platform without affinity masks
+        return os.cpu_count() or 1
+
+
+def row_blocks(weight: np.ndarray, k: int) -> list[tuple[int, int]]:
+    """Cut rows 0 .. B into at most ``k`` contiguous blocks [lo, hi) of
+    about equal summed ``weight`` (a row's anchor demand, 0 for a row
+    the round does not chain). Every row lies in exactly one block."""
+    B = weight.size
+    total = int(weight.sum())
+    if k <= 1 or total == 0:
+        return [(0, B)]
+    cum = np.cumsum(weight)
+    # a block ends at the row whose running sum first reaches j/k of it
+    cuts = np.searchsorted(cum, total * np.arange(1, k) / k, side="left") + 1
+    edges = np.unique(np.concatenate([[0], np.minimum(cuts, B), [B]]))
+    return list(zip(edges[:-1].tolist(), edges[1:].tolist()))
+
+
 class _ReadState:
     __slots__ = (
         "name", "signal", "qlen", "chunk_ptr", "chunks_done", "events",
@@ -191,6 +221,7 @@ class MappingEngine:
         chain_impl: str = "auto",
         stage1_impl: str = "auto",
         fused: bool = False,
+        pool_workers: int | None = None,
     ):
         if chain_impl not in ("auto", "native", "device"):
             raise ValueError(f"chain_impl must be auto|native|device: {chain_impl}")
@@ -277,10 +308,26 @@ class MappingEngine:
         # tiles with a side beyond these run in the native host library
         self.dtw_device_max_n = dtw_device_max_n
         self.dtw_device_max_b = dtw_device_max_b
-        # host C work (event detection, expansion, chain DP, round tail)
-        # releases the GIL: run it on a pool so pipeline groups overlap
+        # host C work (expansion, chain DP, round tail) releases the GIL:
+        # run it on a pool so pipeline groups overlap, each round's tail
+        # cut into one row block a worker (row_blocks). Width: one thread
+        # for each CPU this process may run on. On 8 CPUs 8 beat 7 (the
+        # main thread keeping a core) and 4 in every cell tried, CIGAR's
+        # emit-time traceback on the main thread included (PERF.md §6)
+        self.pool_workers = (
+            max(2, host_cpus()) if pool_workers is None else int(pool_workers)
+        )
+        if self.pool_workers < 1:
+            raise ValueError(f"pool_workers must be at least 1: {pool_workers}")
         self._pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=max(2, min(4, os.cpu_count() or 2))
+            max_workers=self.pool_workers
+        )
+        # the per-read event detection, which the main thread waits on,
+        # on a pool of its own so that it never queues behind the tails;
+        # as wide, since with reads that map nowhere it is most of the
+        # host's work (the threads share the CPUs with the tails')
+        self._events_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self.pool_workers
         )
 
         ne = opt.max_events_per_chunk
@@ -356,10 +403,12 @@ class MappingEngine:
 
     # ------------------------------------------------------------------
     def close(self) -> None:
-        """Release the worker pool (idempotent)."""
-        pool, self._pool = self._pool, None
-        if pool is not None:
-            pool.shutdown(wait=True)
+        """Release the worker pools (idempotent)."""
+        for name in ("_pool", "_events_pool"):
+            pool = getattr(self, name)
+            setattr(self, name, None)
+            if pool is not None:
+                pool.shutdown(wait=True)
 
     def __enter__(self):
         return self
@@ -646,6 +695,7 @@ class MappingEngine:
                 stage1 = self._stage1
                 packed_in = np.zeros((B, ne + 2), dtype=np.float32)
 
+                @runtime.spanned("host.events")
                 def detect(item):
                     # native C detector (revent.c semantics); rows and
                     # read states are disjoint
@@ -661,7 +711,7 @@ class MappingEngine:
                     packed_in[i, ne] = evs.size
                     packed_in[i, ne + 1] = dropped
 
-                list(self._pool.map(detect, live))
+                list(self._events_pool.map(detect, live))
             mark("build_inputs")
 
             hist = self._group_hist.get(g)
@@ -739,6 +789,7 @@ class MappingEngine:
         n_ev_dropped = np.zeros(B, np.int64)
         n_occ_dropped = np.zeros(B, np.int64)
 
+        @runtime.spanned("host.events")
         def one(item):
             # rows and read states are disjoint
             i, st = item
@@ -812,9 +863,11 @@ class MappingEngine:
         if nmax > A and fused_out is None:
             A = 1 << int(np.ceil(np.log2(nmax)))
         A = min(A, self.max_anchors_ceiling)
-        seg_b = np.full((B, A), np.int32(0x7FFFFFFF), dtype=np.int32)
-        tgt_b = np.zeros((B, A), dtype=np.int32)
-        qry_b = np.zeros((B, A), dtype=np.int32)
+        # each block job fills its own rows: the sentinel segment and
+        # zeros before the expansion, every column of scores and preds
+        seg_b = np.empty((B, A), dtype=np.int32)
+        tgt_b = np.empty((B, A), dtype=np.int32)
+        qry_b = np.empty((B, A), dtype=np.int32)
         n_anch = np.zeros(B, dtype=np.int32)
         read_offsets = np.zeros(B, dtype=np.int64)
         for i, st in enumerate(slots):
@@ -825,31 +878,36 @@ class MappingEngine:
         use_dtw = bool(opt.flag & (MappingFlag.DTW_EVALUATE_CHAINS
                                    | MappingFlag.DTW_LOG_SCORES))
         io = self.index.opt
+        # contiguous row blocks of about equal anchor demand, at most one
+        # a worker and one a ROW_BLOCK_ANCHORS of demand
+        weight = np.where(chain_this_round, need, 0)
+        blocks = row_blocks(weight, min(
+            self.pool_workers, -(-int(weight.sum()) // ROW_BLOCK_ANCHORS)))
 
-        def expand():
-            # hits and carried anchors into the (B, A) blocks; returns
-            # (max_used, max_true, dropped)
-            return manchors.expand_round(
-                s1.lo, s1.qpos, h_count, chain_this_round, read_offsets,
-                carried_lists, self._h_val_id, self._h_val_ps, A,
-                seg_b, tgt_b, qry_b, n_anch,
+        @runtime.spanned("host.expand")
+        def expand(lo, hi):
+            # rows lo..hi's hits and carried anchors into their rows of
+            # the (B, A) blocks; returns (max_used, max_true, dropped)
+            return manchors.expand_block(
+                lo, hi, s1.lo, s1.qpos, h_count, chain_this_round,
+                read_offsets, carried_lists, self._h_val_id,
+                self._h_val_ps, A, seg_b, tgt_b, qry_b, n_anch,
             )
 
-        def chain_dp_native():
-            return native.chain_dp(
-                seg_b, tgt_b, qry_b, n_anch,
-                window=self.chain_window,
-                e=io.e,
-                max_gap=opt.max_gap_length,
-                max_target_gap=opt.max_target_gap_length,
-                max_skips=opt.max_num_skips,
-            )
+        dp_kw = dict(
+            window=self.chain_window,
+            e=io.e,
+            max_gap=opt.max_gap_length,
+            max_target_gap=opt.max_target_gap_length,
+            max_skips=opt.max_num_skips,
+        )
 
-        def chains_of_round(scores, preds) -> dict[int, list[gchain.Chain]]:
-            # the traceback of every chained read, sorted by chaining
-            # score when DTW runs
+        @runtime.spanned("host.chains_of_round")
+        def chains_of_round(scores, preds, lo=0, hi=B):
+            # the traceback of every chained read of rows lo..hi, sorted
+            # by chaining score when DTW runs
             per_read = {}
-            for i in np.nonzero(chain_this_round)[0]:
+            for i in np.nonzero(chain_this_round[lo:hi])[0] + lo:
                 chains = postprocess.chains_from_dp_fast(
                     seg_b[i], tgt_b[i], qry_b[i], scores[i], preds[i],
                     int(n_anch[i]), opt,
@@ -861,63 +919,81 @@ class MappingEngine:
 
         if (self.chain_impl == "native" and fused_out is None
                 and not opt.flag & LOG_FLAGS):
-            # the whole host tail on the worker pool; the anchor logs
-            # stay on this thread to keep their order, as in the JAX engine
-            def work():
-                _, _, dropped = expand()
-                scores, preds = chain_dp_native()
-                if self._python_tail:
-                    return dropped, None, chains_of_round(scores, preds)
-                rec = native.round_chains(
-                    seg_b, tgt_b, qry_b, scores, preds, n_anch,
-                    chain_this_round.astype(np.uint8), A,
-                    min_chaining_score=opt.min_chaining_score,
-                    num_best_chains=opt.num_best_chains,
-                    min_num_anchors=opt.min_num_anchors,
-                    disable_filter=bool(
-                        opt.flag & MappingFlag.DISABLE_CHAININGSCORE_FILTERING
-                    ),
-                    sort_for_dtw=use_dtw,
-                    use_dtw=use_dtw,
-                    border_global=(
-                        opt.dtw_border_constraint == BorderConstraint.GLOBAL
-                    ),
-                    fill_full=opt.dtw_fill_method == FillMethod.FULL,
-                    band_frac=opt.dtw_band_radius_frac,
-                    segbase=self._segbase_tbl,
-                    ev_base=self._evbase_arr,
-                )
-                return dropped, rec, None
+            # the whole host tail on the worker pool, one job a row block;
+            # the anchor logs stay on this thread to keep their order, as
+            # in the JAX engine
+            scores = np.empty((B, A), dtype=np.float32)
+            preds = np.empty((B, A), dtype=np.int32)
+            gate = chain_this_round.astype(np.uint8)
 
-            tail_fut = self._pool.submit(work)
+            def work(lo, hi):
+                r = slice(lo, hi)
+                stats = expand(lo, hi)
+                with runtime.span("host.chain_dp"):
+                    native.chain_dp_into(seg_b[r], tgt_b[r], qry_b[r],
+                                         n_anch[r], scores[r], preds[r],
+                                         **dp_kw)
+                if self._python_tail:
+                    return stats, chains_of_round(scores, preds, lo, hi)
+                with runtime.span("host.round_chains"):
+                    return stats, native.round_chains(
+                        seg_b[r], tgt_b[r], qry_b[r], scores[r], preds[r],
+                        n_anch[r], gate[r], A,
+                        min_chaining_score=opt.min_chaining_score,
+                        num_best_chains=opt.num_best_chains,
+                        min_num_anchors=opt.min_num_anchors,
+                        disable_filter=bool(
+                            opt.flag & MappingFlag.DISABLE_CHAININGSCORE_FILTERING
+                        ),
+                        sort_for_dtw=use_dtw,
+                        use_dtw=use_dtw,
+                        border_global=(
+                            opt.dtw_border_constraint == BorderConstraint.GLOBAL
+                        ),
+                        fill_full=opt.dtw_fill_method == FillMethod.FULL,
+                        band_frac=opt.dtw_band_radius_frac,
+                        segbase=self._segbase_tbl,
+                        ev_base=self._evbase_arr[r],
+                    )
+
+            futs = [self._pool.submit(work, lo, hi) for lo, hi in blocks]
             mark("host_anchors")
             yield
-            dropped, rec, per_read_chains = tail_fut.result()
-            self.counters["anchors_dropped"] += dropped
+            outs = [f.result() for f in futs]
+            self.counters["anchors_dropped"] += sum(st[2] for st, _ in outs)
             mark("chain_dp")
-            if rec is not None:
-                yield from self._round_tail_post_native(
-                    slots, g, rec, chain_this_round, ev_counts, use_dtw, mark,
-                    charge_round,
-                )
-            else:
+            if self._python_tail:
+                per_read_chains = {}
+                for _, part in outs:
+                    per_read_chains.update(part)
                 yield from self._round_tail_post(
                     slots, g, per_read_chains, chain_this_round, ev_counts,
                     use_dtw, mark, charge_round,
+                )
+            else:
+                rec = native.merge_round_chains(
+                    [(lo, out) for (lo, _), (_, out) in zip(blocks, outs)])
+                yield from self._round_tail_post_native(
+                    slots, g, rec, chain_this_round, ev_counts, use_dtw, mark,
+                    charge_round,
                 )
             return
 
         # a flag that prints keeps this round's host work on this thread,
         # so that the groups print in the JAX engine's order; otherwise
-        # the expansion and the traceback run on the worker pool while
-        # the other groups go on, as the native path's tail does
+        # the expansion (a job a row block) and the traceback run on the
+        # worker pool while the other groups go on, as the native path's
+        # tail does
         in_order = bool(opt.flag & (LOG_FLAGS | MappingFlag.DTW_LOG_SCORES))
         if in_order:
-            max_used, max_true, dropped = expand()
+            max_used, max_true, dropped = expand(0, B)
         else:
-            fut = self._pool.submit(expand)
+            futs = [self._pool.submit(expand, lo, hi) for lo, hi in blocks]
             yield
-            max_used, max_true, dropped = fut.result()
+            stats = [f.result() for f in futs]
+            max_used = max(x[0] for x in stats)
+            max_true = max(x[1] for x in stats)
+            dropped = sum(x[2] for x in stats)
         self.counters["anchors_dropped"] += dropped
         if opt.flag & LOG_FLAGS:
             self._log_anchors(slots, chain_this_round, seg_b, tgt_b, qry_b,
@@ -946,7 +1022,8 @@ class MappingEngine:
                 scores = wide[:, :w]
                 preds = wide.view(np.int32)[:, w:]
         elif self.chain_impl == "native":
-            scores, preds = chain_dp_native()
+            scores, preds = native.chain_dp(seg_b, tgt_b, qry_b, n_anch,
+                                            **dp_kw)
         else:
             # the anchor axis bucketed to powers of two from 256
             a = 256

@@ -240,6 +240,12 @@ class PendingDtw:
     large_costs: concurrent.futures.Future | None
 
 
+@runtime.spanned("host.dtw_native")
+def _dtw_native(pairs) -> np.ndarray:
+    """The oversized tiles' costs in the native library, on a worker."""
+    return native.dtw_banded_batch(pairs)
+
+
 def dtw_submit_indexed(
     a_base: np.ndarray,
     a_len: np.ndarray,
@@ -296,7 +302,7 @@ def dtw_submit_indexed(
         ]
         # the native batch overlaps the in-flight device classes
         pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-        large_costs = pool.submit(native.dtw_banded_batch, sub)
+        large_costs = pool.submit(_dtw_native, sub)
         pool.shutdown(wait=False)
     return PendingDtw(N, small_idx, small_costs, large_idx, large_costs)
 
@@ -371,7 +377,7 @@ def dtw_submit(
     if large_idx.size:
         sub = [pairs[i] for i in large_idx]
         worker = concurrent.futures.ThreadPoolExecutor(max_workers=1)
-        large_costs = worker.submit(native.dtw_banded_batch, sub)
+        large_costs = worker.submit(_dtw_native, sub)
         worker.shutdown(wait=False)
     return PendingDtw(len(pairs), small_idx, small_costs, large_idx, large_costs)
 

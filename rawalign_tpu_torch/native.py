@@ -352,19 +352,36 @@ def chain_dp(
     """Host chaining DP (C), bit-identical to the device kernel
     (map/chain.py) and the golden model within the bounded window.
     Returns (scores (B, A) f32, preds (B, A) i32)."""
+    B, A = seg.shape
+    scores = np.empty((B, A), dtype=np.float32)
+    preds = np.empty((B, A), dtype=np.int32)
+    chain_dp_into(
+        seg, tgt, qry, n_anchors, scores, preds, window=window, e=e,
+        max_gap=max_gap, max_target_gap=max_target_gap, max_skips=max_skips,
+    )
+    return scores, preds
+
+
+def chain_dp_into(
+    seg, tgt, qry, n_anchors, scores, preds, *,
+    window: int, e: int, max_gap: int, max_target_gap: int, max_skips: int,
+) -> None:
+    """:func:`chain_dp` into the caller's C-contiguous ``scores`` (B, A)
+    float32 and ``preds`` (B, A) int32, every column of every row
+    written: the rows of a block may be views into one round's arrays."""
     lib = load()
     seg = np.ascontiguousarray(seg, dtype=np.int32)
     tgt = np.ascontiguousarray(tgt, dtype=np.int32)
     qry = np.ascontiguousarray(qry, dtype=np.int32)
     n_anchors = np.ascontiguousarray(n_anchors, dtype=np.int32)
     B, A = seg.shape
-    scores = np.empty((B, A), dtype=np.float32)
-    preds = np.empty((B, A), dtype=np.int32)
+    if scores.shape != (B, A) or preds.shape != (B, A):
+        raise ValueError(f"outputs {scores.shape} / {preds.shape} for "
+                         f"anchors {(B, A)}")
     lib.ra_chain_dp(
         seg, tgt, qry, n_anchors, B, A, window, e,
         max_gap, max_target_gap, max_skips, scores, preds,
     )
-    return scores, preds
 
 
 def expand_round_available() -> bool:
@@ -502,6 +519,29 @@ def round_chains(
         ch_end_t[:nc], ch_nanch[:nc], ch_aoff[: nc + 1], ch_at[:na],
         ch_aq[:na], ch_doff[: nc + 1], descs[:nd],
     )
+
+
+def merge_round_chains(parts) -> tuple:
+    """One :func:`round_chains` tuple from those of contiguous row blocks,
+    given as (first row, tuple) in row order: array for array what one
+    call over all the rows returns. Each block numbers its reads and its
+    anchor and descriptor offsets from 0; the descriptors hold absolute
+    reference and event bases and stay as they are."""
+    if len(parts) == 1 and parts[0][0] == 0:
+        return parts[0][1]
+    cols: list[list[np.ndarray]] = [[] for _ in range(11)]
+    cols[6].append(np.zeros(1, np.int64))
+    cols[9].append(np.zeros(1, np.int64))
+    na = nd = 0
+    for lo, rec in parts:
+        for k in (1, 2, 3, 4, 5, 7, 8, 10):
+            cols[k].append(rec[k])
+        cols[0].append(rec[0] + np.int32(lo))
+        cols[6].append(rec[6][1:] + na)
+        cols[9].append(rec[9][1:] + nd)
+        na += int(rec[6][-1])
+        nd += int(rec[9][-1])
+    return tuple(np.concatenate(c) for c in cols)
 
 
 def round_finalize(

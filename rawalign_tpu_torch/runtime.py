@@ -15,13 +15,20 @@ primitives, the device check and the NaN guard:
   event only;
 * :func:`set_debug_nans` and :func:`check_finite` are the port's
   ``jax_debug_nans``: with the switch on, the kernel wrappers raise
-  ``FloatingPointError`` on a NaN in the float data they read or write.
+  ``FloatingPointError`` on a NaN in the float data they read or write;
+* :func:`span` and :func:`spanned` name a host job in a ``torch.profiler``
+  trace.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 
 def device(name: str | torch.device) -> torch.device:
@@ -119,3 +126,28 @@ def fetch_async(t: torch.Tensor) -> PendingFetch:
 def fetch(t: torch.Tensor) -> np.ndarray:
     """Blocking device->host copy."""
     return fetch_async(t).result()
+
+
+def span(name: str):
+    """Context manager around a host job: a ``record_function(name)``
+    span while a ``torch.profiler`` session is open in this process, else
+    nothing, so that outside a session a span costs one flag test and not
+    the profiler's dispatcher calls. A session records the spans of
+    threads other than its own only when it is started with
+    ``_ExperimentalConfig(profile_all_threads=True)``."""
+    if getattr(_autograd_profiler, "_is_profiler_enabled", True):
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+def spanned(name: str):
+    """Decorator: each call runs in a :func:`span` of its own (one
+    ``record_function`` used as the decorator would be shared by every
+    call, and calls on several threads would tangle it)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kw):
+            with span(name):
+                return fn(*args, **kw)
+        return run
+    return wrap
