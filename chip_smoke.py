@@ -48,9 +48,11 @@ Phases (each raises on failure; the script then exits non-zero):
    the chain kernel on the kept round
    and on two synthetic rounds of 16384 anchors (W=64, segments sorted;
    W=2048, segments interleaved) against both plain versions (the plain
-   DP on the card, the warp-form scan on the host CPU) and
-   ``native.chain_dp``, and at W=12000 (its ring in device memory)
-   against the plain DP and native; then the counters are zeroed and a timed pass
+   DP on the card, the kernel-step scan on the host CPU) and
+   ``native.chain_dp``, and at W=12000 (its rings in device memory)
+   against the plain DP and native, logging each round's runs (a warp
+   each), its widest run and the time per step of that run beside the
+   figure before the run split; then the counters are zeroed and a timed pass
    maps every read. It fails unless
    all four kernels launched in that pass and its 256 PAF lines equal
    the hybrid pass's byte for byte (mt:f stripped), the first 16 also
@@ -76,8 +78,9 @@ Phases (each raises on failure; the script then exits non-zero):
    ranks on the one card: a warm and a timed pass with the hybrid stage1
    on a (2, 2) mesh and with the device stage1 on a (1, 4) mesh. All 256
    PAF lines of each timed pass must equal phase 5's; in each, every rank
-   launches the sketch and chain kernels once a round (and the event
-   kernel under the device stage1) and the DTW kernel once a round when
+   launches the sketch kernel once a round and the chain kernel's two
+   launches (window pass, recurrence) once (and the event kernel under
+   the device stage1) and the DTW kernel once a round when
    it has tiles. The routed stage1 (all-to-all lookup) is held to the
    one-card stage1 on a captured round, and phase 4's captured DTW round,
    dealt over the ranks, to the one-launch round bit for bit. It logs
@@ -86,8 +89,9 @@ Phases (each raises on failure; the script then exits non-zero):
 8. the fused stage1+chain (``fused=True``, device stage1 and chain) at
    ``max_anchors=65536``, where the widest first round stays fused: a
    warm and a timed pass whose 256 PAF lines must equal phase 5's, with
-   no escalation, a DP prefix refetch in each chained round, the event,
-   sketch and chain kernels launched once a round and the DTW kernel
+   no escalation, a DP prefix refetch in each chained round, the event
+   and sketch kernels launched once a round, the chain kernel's two
+   launches once, and the DTW kernel
    once a round with device tiles; it logs reads/s beside phases 4 and 5
    and the chain-upload bytes the fused rounds no longer send. Then one
    pass at the default budget (2048), whose wide rows escalate, against
@@ -110,7 +114,8 @@ phases 1-3, the timed passes of 4 and 5 and phase 7 alone (a minute or
 two), for a machine with four cards.
 
 Every kernel's record carries its time, its plain version's, its
-launches in the timed passes of phases 5 and 8 (the all-device and the
+launches in the timed passes of phases 5 and 8 (two a call for the chain
+kernel: the window pass and the recurrence; the all-device and the
 fused path), and its bound: the larger of the bytes its launch must move at the card's memory
 rate and the operations this run's data needs at its scalar rate (see
 ``bound``).
@@ -156,6 +161,12 @@ SKETCH_OPS = 30
 CHAIN_OPS = 20
 #: per DTW cell in the band: |a - b|, two minima, one add
 DTW_OPS = 5
+#: launches of the chain kernel a call: the window pass, then the
+#: recurrence (map/chain_cuda.py)
+CHAIN_LAUNCHES = 2
+#: the chain kernel on the captured round before its run split (one warp
+#: a read; PERF.md section 6 row 3)
+PARENT_CHAIN_MS, PARENT_CHAIN_WIDEST, PARENT_CHAIN_US = 22.5042, 52208, 0.4271
 
 
 def log(msg: str) -> None:
@@ -762,11 +773,13 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
     plain_ms, want = cuda_ms(lambda: chain.chain_dp_plain(*d, **kw), 0)
     checks = [("chain_dp_plain", want)]
     visited = torch.zeros(n.size, dtype=torch.int64)
+    paths = torch.zeros(2, dtype=torch.int64)
     t0 = time.perf_counter()
     rows = slice(0, scan_rows)
     if scan:
         checks.append(("chain_dp_scan_plain", chain.chain_dp_scan_plain(
-            *(x[rows] for x in host), visited=visited[rows], **kw)))
+            *(x[rows] for x in host), visited=visited[rows], paths=paths,
+            **kw)))
     scan_s = time.perf_counter() - t0
     for what, ref in checks:
         k = ref.scores.shape[0]
@@ -785,13 +798,24 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
     slots = int(visited.sum())
     bound_ms, bound_by = bound(nbytes, CHAIN_OPS * slots)
     nmax = int(n.max())
-    ring = "shared memory" if 16 * (1 << (min(window, a) + 31).bit_length()) \
-        <= chain_cuda.MAX_SMEM else "device memory"
-    log(f"[chain] {label}: B={B} A={a} (max {nmax} anchors) W={window}, ring "
-        f"in {ring}: kernel {ms:.4f} ms ({ms * 1e3 / max(nmax, 1):.4f} us per "
+    # the kernel's serial chains: a warp per run (segment or target-gap
+    # break), so the widest run, not the widest read, sets its time
+    starts = chain.chain_runs(host[0], host[1], host[3],
+                              max_target_gap=kw["max_target_gap"])
+    lens = [int(x) for st, m in zip(starts, n)
+            for x in torch.diff(st, append=st.new_tensor([int(m)]))]
+    wrun = max(lens, default=0)
+    ring, warps, in_smem = chain_cuda.geometry(window, a)
+    log(f"[chain] {label}: B={B} A={a} (max {nmax} anchors) W={window}, "
+        f"{warps} warps a read, rings of {ring} slots in "
+        f"{'shared' if in_smem else 'device'} memory; {len(lens)} runs, the "
+        f"widest {wrun} anchors: kernel {ms:.4f} ms ({ms * 1e3 / max(wrun, 1):.4f}"
+        f" us per step of the widest run, {ms * 1e3 / max(nmax, 1):.4f} per "
         f"anchor of the widest read), plain {plain_ms:.2f} ms on the card, "
         + (f"scan {scan_s:.1f} s on the CPU; {slots} slots visited, bound "
-           f"{bound_ms:.6f} ms ({bound_by}); bit-identical to both plain "
+           f"{bound_ms:.6f} ms ({bound_by}); anchors with a predecessor "
+           f"slot resolved by the max / across the lanes: "
+           f"{paths.tolist()}; bit-identical to both plain "
            "versions and native" if scan and scan_rows is None else
            f"scan of the first {scan_rows} rows {scan_s:.1f} s on the CPU; "
            "bit-identical to both plain versions (the scan on those rows) "
@@ -799,7 +823,8 @@ def _chain_vs(packed, a, device, window, kw, reps: int, label: str,
            "bit-identical to chain_dp_plain and native"))
     return dict(ms=ms, plain_ms=plain_ms, max_abs_err=float(
         (got.scores - want.scores).abs().max()), bound_ms=bound_ms,
-        bound_by=bound_by, widest=nmax)
+        bound_by=bound_by, widest=nmax, runs=len(lens), widest_run=wrun,
+        paths=paths.tolist())
 
 
 def _chain_round(rng, B, A, n_seg, t_span, interleave: bool):
@@ -835,6 +860,12 @@ def check_chain(engine, captured, device, reps: int = 10) -> dict:
     packed, a = captured
     rec = _chain_vs(packed, a, device, engine.chain_window, kw, reps,
                     "captured round")
+    log(f"[chain] captured round before the run split (one warp a read, "
+        f"PERF.md section 6 row 3, on an H100 80GB HBM3 at 700 W): "
+        f"{PARENT_CHAIN_MS} ms, the widest read {PARENT_CHAIN_WIDEST} anchors at "
+        f"{PARENT_CHAIN_US} us each; now {rec['ms']:.4f} ms, {rec['runs']} runs, "
+        f"the widest {rec['widest_run']} steps at "
+        f"{rec['ms'] * 1e3 / max(rec['widest_run'], 1):.4f} us each")
     rng = np.random.default_rng(2)
     A = 16384
     wide = _chain_round(rng, 32, A, 8, 5_000_000, False)
@@ -845,7 +876,7 @@ def check_chain(engine, captured, device, reps: int = 10) -> dict:
     rec["w2048_ms"] = _chain_vs(dense, A, device, 2048, kw, 3,
                                 "synthetic round, interleaved",
                                 scan_rows=8)["ms"]
-    # a window beyond the shared-memory ring (min(W, A) > 8160)
+    # a window beyond the shared-memory rings (min(W, A) > 4032)
     _chain_vs(dense[:8], A, device, 12_000, kw, 3,
               "synthetic round, interleaved, wide window", scan=False)
     return rec
@@ -1258,8 +1289,8 @@ def phase7(device, idx, mo, reads, device_lines: dict, single, ref_cat,
     cards when there are, else four ranks on ``device``): a warm and a timed
     pass with the hybrid stage1 on (2, 2) and the device stage1 on (1, 4).
     Every timed pass's PAF must equal phase 5's, each rank must launch the
-    sketch and chain kernels once a round (and the event kernel under the
-    device stage1), the DTW kernel at most once a rank a round and at
+    sketch kernel and the chain kernel's two launches once a round (and
+    the event kernel under the device stage1), the DTW kernel at most once a rank a round and at
     least once a pass; the routed stage1 is held to the one-card stage1
     on a captured round, the sharded DTW to the one-launch round."""
     import torch
@@ -1314,7 +1345,10 @@ def phase7(device, idx, mo, reads, device_lines: dict, single, ref_cat,
             res, launches, rate = timed_pass(eng, reads, counters, label, smi,
                                              ranks=R)
             rounds = calls["stage1"]
-            want = {"sketch_scan": R * rounds, "chain_dp": R * calls["chain"],
+            # the chain DP is two launches a call: the window pass and
+            # the recurrence (map/chain_cuda.py)
+            want = {"sketch_scan": R * rounds,
+                    "chain_dp": CHAIN_LAUNCHES * R * calls["chain"],
                     "event_detect": R * rounds}
             got = {k: launches[k] for k in want if k in launches}
             if any(got[k] != want[k] for k in got) or not launches["dtw_banded"]:
@@ -1346,8 +1380,9 @@ def phase8(device, idx, mo, reads, device_lines: dict, rates: dict,
     stage1 and chain placements. A warm and a timed pass at
     ``max_anchors=FUSED_ANCHORS``: all PAF lines must equal phase 5's,
     no round may escalate, every round must refetch its DP prefix, the
-    event, sketch and chain kernels must launch once a fused round and
-    the DTW kernel once a round with device tiles. Then one pass at the
+    event and sketch kernels must launch once a fused round, the chain
+    kernel's two launches once, and the DTW kernel once a round with
+    device tiles. Then one pass at the
     default budget against the unfused all-device engine at the same
     ceiling: equal PAFs, escalations logged. Returns the timed pass's
     launches."""
@@ -1395,7 +1430,7 @@ def phase8(device, idx, mo, reads, device_lines: dict, rates: dict,
         same_lines("8 fused", lines_of(res), device_lines, "phase 5's")
         rounds = calls["fused"] + calls["unfused"]
         want = {"event_detect": rounds, "sketch_scan": rounds,
-                "chain_dp": calls["fused"]}
+                "chain_dp": CHAIN_LAUNCHES * calls["fused"]}
         if (c["fused_escalations"] or not c["fused_refetches"]
                 or calls["unfused"] or any(launches[k] != v
                                            for k, v in want.items())):

@@ -140,3 +140,24 @@ def test_scan_counts_the_slots_the_serial_loop_visits(window, max_skips):
     np.testing.assert_array_equal(got.preds.numpy(), p)
     np.testing.assert_array_equal(visited.numpy(), visits)
     assert visits.min() > 0
+
+
+def test_scan_sends_an_anchor_across_the_lanes_only_when_its_record_cannot_hold_it():
+    """Every anchor with a predecessor slot is resolved by the max or
+    across the lanes; a lower skip limit turns more records complex (a
+    candidate past the limit could meet a skip break), and the scores
+    stay the serial loop's either way."""
+    x = _rows(7, 160, 2, False, True, 2)
+    t = [torch.from_numpy(v) for v in x]
+    counts = {}
+    for max_skips in (0, 3, 25):
+        kw = dict(window=64, max_skips=max_skips, **KW)
+        paths = torch.zeros(2, dtype=torch.int64)
+        got = chain.chain_dp_scan_plain(*t, paths=paths, **kw)
+        f, p, _ = _serial(*x, **kw)
+        np.testing.assert_array_equal(got.scores.numpy(), f)
+        np.testing.assert_array_equal(got.preds.numpy(), p)
+        assert int(paths.sum()) == int(np.maximum(x[3].astype(np.int64) - 1, 0).sum())
+        counts[max_skips] = paths.tolist()
+    assert counts[0][1] >= counts[3][1] >= counts[25][1]
+    assert counts[0][1] > counts[25][1] and counts[25][0] > 0

@@ -290,14 +290,21 @@ def test_event_kernel_runs_again_the_chunks_that_started_wrong(dev):
     assert seen["constant"] == (2 * B * (n_chunks - 1), 2 * B)
 
 
-def _chain_rows(rng, B, A, interleave=False):
+def _chain_rows(rng, B, A, interleave=False, runs=None):
     """Sorted rows with co-linear runs; with ``interleave`` sorted by
-    (target, query) alone, so the segments alternate inside the window."""
+    (target, query) alone, so the segments alternate inside the window.
+    ``runs`` shapes the rows' independent runs (``chain.chain_runs``):
+    ``"gaps"`` adds 40 target jumps beyond max_target_gap a row to its
+    four segments; ``"singletons"`` makes every anchor a run of its own
+    (a segment each in even rows, a target jump each in odd rows);
+    ``"one_long"`` puts a co-linear run of three quarters of the row in
+    segment 0 and single anchors in segments of their own after it."""
     seg = np.full((B, A), 0x7FFFFFFF, np.int32)
     tgt = np.zeros((B, A), np.int32)
     qry = np.zeros((B, A), np.int32)
     n = rng.integers(A // 2, A + 1, B).astype(np.int32)
     n[0] = A
+    mtg = CHAIN_KW["max_target_gap"]
     for b in range(B):
         m = int(n[b])
         s = np.sort(rng.integers(0, 4, m))
@@ -309,45 +316,82 @@ def _chain_rows(rng, B, A, interleave=False):
             t[k : k + run.size] = t[k] + run * 10
             q[k : k + run.size] = q[k] + run * 9
         o = np.lexsort((q, t) if interleave else (q, t, s))
-        seg[b, :m], tgt[b, :m], qry[b, :m] = s[o], t[o], q[o]
+        s, t, q = s[o], t[o], q[o]
+        if runs == "gaps":  # a non-decreasing offset keeps the order
+            jump = np.zeros(m, np.int64)
+            jump[rng.integers(1, m, 40)] = mtg + 1
+            t = t + np.cumsum(jump)
+        elif runs == "singletons":
+            if b % 2 == 0:
+                s = np.arange(m)
+            else:
+                s[:] = 0
+                t = np.arange(m) * (mtg + 1)
+        elif runs == "one_long":
+            long = 3 * m // 4
+            s = np.concatenate([np.zeros(long, np.int64), np.arange(1, m - long + 1)])
+            t[:long] = np.arange(long) * 10
+            q[:long] = np.arange(long) * 9
+        seg[b, :m], tgt[b, :m], qry[b, :m] = s, t, q
     return seg, tgt, qry, n
 
 
-@pytest.mark.parametrize("window,B,A,interleave", [
-    (8, 32, 2048, False), (64, 32, 4096, False), (2048, 8, 1024, False),
-    (64, 2, 1 << 17, False), (1, 8, 512, False), (31, 8, 512, True),
-    (32, 8, 512, True), (33, 8, 512, True), (2048, 8, 4096, True),
-    (8160, 2, 9000, True),
+@pytest.mark.parametrize("window,B,A,interleave,runs", [
+    (8, 32, 2048, False, None), (64, 32, 4096, False, None),
+    (2048, 8, 1024, False, None), (64, 2, 1 << 17, False, None),
+    (1, 8, 512, False, None), (31, 8, 512, True, None),
+    (32, 8, 512, True, None), (33, 8, 512, True, None),
+    (2048, 8, 4096, True, None), (8160, 2, 9000, True, None),
+    (64, 8, 4096, False, "gaps"), (65, 8, 2048, False, "gaps"),
+    (2048, 4, 4096, False, "gaps"), (64, 32, 1 << 16, False, "gaps"),
+    (64, 8, 1024, False, "singletons"), (64, 8, 4096, False, "one_long"),
+    (64, 4, 1 << 17, False, "one_long"), (6000, 2, 8192, False, "gaps"),
+    (10_000, 2, 16_384, False, "gaps"),
 ])
-def test_chain_kernel_matches_plain_and_native(dev, window, B, A, interleave):
+def test_chain_kernel_matches_plain_and_native(dev, window, B, A, interleave,
+                                               runs):
     """Up to A = 4096 also against both plain versions (the warp-form scan
-    on the CPU); at A = 1<<17 (the anchor ceiling) and at the widest
-    window the kernel takes (8160) only against native: the plain
-    versions would step every anchor one launch sequence at a time."""
+    on the CPU) and the run-split plain DP; at A = 1<<16 and 1<<17 (the
+    anchor ceiling) and at windows 6000 and up only against native: the
+    plain versions would step every anchor one launch sequence at a time.
+    Rows of many runs (segments and target gaps), of a run an anchor, and
+    of one run far longer than the rest, whose runs the kernel deals to
+    the warps of its block; at windows 6000, 8160 and 10,000 the rings
+    live in device memory, and the sorted rows with gaps deal their runs
+    to eight warps there."""
     rng = np.random.default_rng(window + A)
-    seg, tgt, qry, n = _chain_rows(rng, B, A, interleave)
+    seg, tgt, qry, n = _chain_rows(rng, B, A, interleave, runs)
     kw = dict(window=window, **CHAIN_KW)
-    d = [torch.from_numpy(x).to(dev) for x in (seg, tgt, qry, n)]
+    host = [torch.from_numpy(x) for x in (seg, tgt, qry, n)]
+    starts = chain.chain_runs(host[0], host[1], host[3],
+                              max_target_gap=CHAIN_KW["max_target_gap"])
+    if runs == "singletons":
+        assert all(len(st) == int(m) for st, m in zip(starts, n))
+    elif runs is not None:
+        assert min(len(st) for st in starts) > 4
+    d = [x.to(dev) for x in host]
     before = chain_cuda.launches
     got = chain_cuda.chain_dp(*d, **kw)
     torch.cuda.synchronize()
-    assert chain_cuda.launches == before + 1
+    assert chain_cuda.launches == before + 2  # window pass, recurrence
     if A <= 4096:
         want = chain.chain_dp_plain(*d, **kw)
         assert torch.equal(got.scores, want.scores)
         assert torch.equal(got.preds, want.preds)
-        scan = chain.chain_dp_scan_plain(
-            *(torch.from_numpy(x) for x in (seg, tgt, qry, n)), **kw)
+        scan = chain.chain_dp_scan_plain(*host, **kw)
         assert torch.equal(got.scores.cpu(), scan.scores)
         assert torch.equal(got.preds.cpu(), scan.preds)
+        split = chain.chain_dp_runs_plain(*host, slabs=chain.JOBS, **kw)
+        assert torch.equal(got.scores.cpu(), split.scores)
+        assert torch.equal(got.preds.cpu(), split.preds)
     ns, npred = native.chain_dp(seg, tgt, qry, n, **kw)
     np.testing.assert_array_equal(got.scores.cpu().numpy(), ns)
     np.testing.assert_array_equal(got.preds.cpu().numpy(), npred)
-    assert (npred != np.arange(A)).any()
+    assert (npred != np.arange(A)).any() or runs == "singletons"
 
 
 def test_chain_kernel_takes_a_window_beyond_shared_memory(dev):
-    """min(W, A) above 8160 does not fit the shared-memory ring: the
+    """min(W, A) above 8128 does not fit the shared-memory ring: the
     kernel keeps its ring in device memory, with the same scores and
     predecessors as the plain DP and native, W = 10,000 at A = 16,384."""
     rng = np.random.default_rng(10_000)
@@ -369,7 +413,7 @@ def test_chain_kernel_takes_a_window_beyond_shared_memory(dev):
     before = chain_cuda.launches
     got = chain_cuda.chain_dp(*d, **kw)
     torch.cuda.synchronize()
-    assert chain_cuda.launches == before + 1
+    assert chain_cuda.launches == before + 2  # window pass, recurrence
     want = chain.chain_dp_plain(*d, **kw)
     assert torch.equal(got.scores, want.scores)
     assert torch.equal(got.preds, want.preds)
